@@ -1,0 +1,151 @@
+"""Serving entry point: batched decode with a KV cache (PyTorch port of
+``repro.launch.serve``).
+
+Requests are batched with a fixed batch of left-aligned prompts.  Each prompt
+is absorbed token by token through the decode step, then new tokens are
+decoded greedily or sampled with a temperature.
+
+Greedy output is the JAX ``Server``'s, token for token.  Temperature sampling
+draws from a ``torch.Generator`` seeded from ``job.seed``, so its tokens differ
+from ``jax.random.categorical``'s: that is the one intended difference.
+
+The server runs on the card unless the caller names another device; with no
+CUDA device present and none named, it raises.
+
+CLI:  python -m repro_torch.launch.serve --arch gemma-2b --smoke --tokens 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
+from repro_torch.models.model import build_model
+
+
+@dataclass
+class ServeJob:
+    arch: str = "gemma-2b"
+    smoke: bool = True
+    batch: int = 4
+    prompt_len: int = 32
+    max_new_tokens: int = 16
+    temperature: float = 0.0
+    seed: int = 0
+    model_axis: int = 1
+    device: Optional[str] = None      # None: the CUDA device
+
+
+class Server:
+    def __init__(self, job: ServeJob, params=None, device=None) -> None:
+        if job.model_axis > 1:
+            raise NotImplementedError(
+                "tensor-parallel serving is not ported yet; see ROADMAP "
+                "Queue 1 item 16 (distribution)")
+        device = device or job.device
+        if device is None and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        self.job = job
+        self.device = torch.device(device or "cuda")
+        cfg = get_arch(job.arch)
+        if job.smoke:
+            cfg = reduce_for_smoke(cfg)
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        if params is None:
+            gen = torch.Generator(self.device).manual_seed(job.seed)
+            params = self.model.init(gen, self.device)
+        self.params = params
+        self.head = self.model.logits_weight(params)   # fp32, made once
+        self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0}
+
+    def _step(self, cache, tokens: np.ndarray, pos: int):
+        tok = torch.from_numpy(tokens).to(self.device, torch.int64)
+        return self.model.decode_step(self.params, cache, tok, pos,
+                                      head=self.head)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts: np.ndarray, max_new_tokens: Optional[int] = None
+                 ) -> np.ndarray:
+        """prompts (B, P) int32 -> (B, P + new) generated ids (greedy/sampled)."""
+        job = self.job
+        new = max_new_tokens or job.max_new_tokens
+        B, P = prompts.shape
+        total = P + new
+        cache = self.model.init_cache(B, total, self.device)
+        gen = torch.Generator(self.device).manual_seed(job.seed)
+        out = np.zeros((B, total), np.int32)
+        out[:, :P] = prompts
+        t0 = time.perf_counter()
+        # prompt absorption token-by-token through the decode path (the cache
+        # layout then matches decode exactly)
+        logits = None
+        for t in range(P):
+            logits, cache = self._step(cache, out[:, t], t)
+        self._sync()
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for t in range(P, total):
+            out[:, t] = self._sample(logits, gen).cpu().numpy()
+            logits, cache = self._step(cache, out[:, t], t)
+        self._sync()
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["tokens"] += B * new
+        return out
+
+    def _sample(self, logits: torch.Tensor, gen: torch.Generator
+                ) -> torch.Tensor:
+        logits = logits[..., : self.cfg.vocab_size]
+        if self.job.temperature <= 0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.job.temperature, dim=-1)
+        flat = probs.reshape(-1, probs.shape[-1])
+        picks = torch.multinomial(flat, 1, generator=gen)
+        return picks.reshape(probs.shape[:-1]).to(torch.int32)
+
+    def throughput(self) -> float:
+        return self.stats["tokens"] / self.stats["decode_s"] \
+            if self.stats["decode_s"] else 0.0
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma-2b", choices=sorted(ARCHS))
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the CUDA device")
+    args = ap.parse_args()
+    job = ServeJob(arch=args.arch, smoke=args.smoke, batch=args.batch,
+                   prompt_len=args.prompt_len, max_new_tokens=args.tokens,
+                   temperature=args.temperature, device=args.device)
+    server = Server(job)
+    rng = np.random.default_rng(0)
+    if job.smoke and server.cfg.num_codebooks:
+        raise SystemExit("serve CLI demo targets text archs; musicgen decode "
+                         "is covered by tests")
+    prompts = rng.integers(0, server.cfg.vocab_size,
+                           (job.batch, job.prompt_len)).astype(np.int32)
+    out = server.generate(prompts)
+    print(f"generated {out.shape} | decode throughput "
+          f"{server.throughput():.1f} tok/s "
+          f"(batch {job.batch}, {server.device})")
+    print("sample ids:", out[0, job.prompt_len:job.prompt_len + 12].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,79 @@
+"""Shared neural layers: norms, rotary embeddings, GLU MLPs, embedding.
+
+PyTorch port of ``repro.models.layers``: every layer is ``fn(params, x, ...)``
+over plain tensors, with the JAX package's numerics (fp32 norm statistics,
+fp32 rotary angles, tanh-approximated GELU).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .param import ParamSpec
+
+
+# ----------------------------------------------------------------- norms
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# ------------------------------------------------------------------ rope
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).
+
+    Rotates by halves (not interleaved), with fp32 angles.
+    """
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)        # (D/2,)
+    angles = positions[..., None].float() * freqs                 # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]                         # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------- mlp
+def mlp_specs(d_model: int, d_ff: int, variant: str, dtype: str,
+              stack: Tuple[int, ...] = ()) -> dict:
+    ax = (None,) * len(stack)
+    gated = variant.endswith("_glu")
+    specs = {
+        "wi": ParamSpec(stack + (d_model, d_ff), ax + ("fsdp", "model"), dtype=dtype),
+        "wo": ParamSpec(stack + (d_ff, d_model), ax + ("model", "fsdp"), dtype=dtype),
+    }
+    if gated:
+        specs["wg"] = ParamSpec(stack + (d_model, d_ff), ax + ("fsdp", "model"),
+                                dtype=dtype)
+    return specs
+
+
+def mlp(params: dict, x: torch.Tensor, variant: str) -> torch.Tensor:
+    h = x @ params["wi"]
+    if variant == "silu_glu":
+        h = F.silu(x @ params["wg"]) * h
+    elif variant == "gelu_glu":
+        h = F.gelu(x @ params["wg"], approximate="tanh") * h
+    elif variant == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    else:
+        raise ValueError(variant)
+    return h @ params["wo"]
+
+
+# ------------------------------------------------------------- embeddings
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
