@@ -1,8 +1,8 @@
 """Wrapper for the Hopper decode-attention kernel (inference only: no backward).
 
 ``csrc/decode_attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, at first use, into ``build/`` at the
-root of the repository, and loaded with ``ctypes``.  Tensors on the CPU go
+shared library with a plain C interface at first use, and loaded with
+``ctypes`` (``kernels/_build.py``).  Tensors on the CPU go
 through the plain version in ``ref.py``; tensors on a CUDA device launch the
 kernel, and anything the kernel cannot take raises.
 """
@@ -10,23 +10,17 @@ kernel, and anything the kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import operator
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Tuple
 
 import torch
 
+from .. import _build
 from .ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # Mirrors of the limits in the CUDA source.
 MAX_D = 256
@@ -35,53 +29,20 @@ BLOCKS_PER_SM = 4      # split blocks to aim for on each SM
 MIN_SPLIT_LEN = 32     # keys: below this a split costs more than it saves
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
 
 
 def library_path() -> Path:
     """Where the library built from the current source lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"decode_attention-{digest}.so"
+    return _build.library_path(SOURCE)
 
 
 def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source version) and load it.
-
-    The compiler's output, with ``ptxas``'s register and shared-memory counts,
-    is kept beside the library as ``.log``.
-    """
-    global _lib
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    """Compile the kernel (once per source version) and load it."""
+    lib = _build.load(SOURCE)
     fn = lib.decode_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-    _lib = lib
     return lib
 
 

@@ -1,16 +1,18 @@
-"""Shared neural layers: norms, rotary embeddings, GLU MLPs, embedding.
+"""Shared neural layers: norms, rotary embeddings, GLU MLPs, embedding,
+the loss and rematerialisation.
 
 PyTorch port of ``repro.models.layers``: every layer is ``fn(params, x, ...)``
 over plain tensors, with the JAX package's numerics (fp32 norm statistics,
-fp32 rotary angles, tanh-approximated GELU).
+fp32 rotary angles, tanh-approximated GELU, fp32 cross entropy).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .param import ParamSpec
 
@@ -77,3 +79,32 @@ def mlp(params: dict, x: torch.Tensor, variant: str) -> torch.Tensor:
 # ------------------------------------------------------------- embeddings
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
+
+
+# ------------------------------------------------------------------- loss
+def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE in fp32: logsumexp minus the gold logit, masked."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)
+
+
+# ---------------------------------------------------------------- remat
+def maybe_remat(fn: Callable, policy_name: str) -> Callable:
+    """``"full"`` recomputes ``fn`` in the backward pass (JAX's
+    ``nothing_saveable``); ``"none"`` keeps its activations."""
+    if policy_name == "none":
+        return fn
+    if policy_name == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy_name in ("dots", "dots_no_batch"):
+        raise NotImplementedError(
+            f"remat policy {policy_name!r} is not ported yet; see ROADMAP "
+            "Queue 1 item 4 (dense model and loss)")
+    raise ValueError(f"unknown remat policy {policy_name!r}")

@@ -1,17 +1,22 @@
-"""Model assembly for decode (PyTorch port of ``repro.models.model``).
+"""Model assembly for training and decode (PyTorch port of
+``repro.models.model``).
 
-This slice carries the dense, audio and vlm families (starcoder2, qwen2,
-gemma, gemma3, musicgen, phi3v backbones) through ``decode_step``.  The other
-families raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The dense, audio and vlm families (starcoder2, qwen2, gemma, gemma3,
+musicgen, phi3v backbones) are carried through ``loss_fn`` and
+``decode_step``.  The other families raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 
 Parameters are a nested dict of tensors with the JAX package's paths
 (``blocks/attn/wq``), stacked with a leading layer axis as there; a Python
-loop over the layer index takes the place of ``lax.scan``.
+loop over the layer index (or the period, for local/global patterns) takes
+the place of ``lax.scan``, with ``maybe_remat`` around each iteration as JAX
+puts it around the scan body.
 
 API:
     m = build_model(cfg)
     specs  = m.param_specs()                        # ParamSpec tree
     params = m.init(generator, device)              # real tensors
+    loss, metrics = m.loss_fn(params, batch)        # train forward
     cache  = m.init_cache(batch, max_len, device)
     head   = m.logits_weight(params)                # fp32, once per params
     logits, cache = m.decode_step(params, cache, tokens, pos, head=head)
@@ -26,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
-from .layers import embed, mlp, mlp_specs, rmsnorm
+from .layers import (embed, maybe_remat, mlp, mlp_specs, rmsnorm,
+                     softmax_cross_entropy)
 from .param import ParamSpec, materialize
 
 _NOT_PORTED = {
@@ -45,6 +51,19 @@ def _index(tree, i: int):
     """Layer ``i`` of a stacked parameter or cache tree (views, no copy)."""
     return {k: _index(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unbind(tree):
+    """A stacked tree as the list of its layers (views, no copy).
+
+    One ``unbind`` per leaf, so the backward stacks the layers' gradients
+    once; indexing layer by layer would zero-fill and add a full-size
+    gradient for every layer.
+    """
+    parts = {k: _unbind(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 class Model:
@@ -108,6 +127,91 @@ class Model:
              dtype_override: Optional[str] = None):
         return materialize(self.param_specs(), generator, device,
                            dtype_override)
+
+    # ------------------------------------------------------------- block fwd
+    def _dense_block(self, p, h, positions, kind: str):
+        cfg = self.cfg
+        window = cfg.sliding_window if kind == "L" else 0
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+        h = h + attn.gqa_train(p["attn"], hn, positions, cfg, window=window,
+                               impl=self.attn_impl)
+        hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+        return h + mlp(p["mlp"], hn, cfg.mlp)
+
+    # --------------------------------------------------------------- embed
+    def _scale_embeddings(self, h):
+        # the scale is rounded to h's dtype before the product, as in JAX
+        return h * torch.tensor(math.sqrt(self.cfg.d_model), dtype=h.dtype,
+                                device=h.device)
+
+    def _embed_tokens(self, params, batch):
+        cfg = self.cfg
+        tokens = batch["tokens"].long()
+        if cfg.num_codebooks:                           # (B, K, S)
+            h = None
+            for k in range(cfg.num_codebooks):
+                e = embed(params["embed"][k], tokens[:, k])
+                h = e if h is None else h + e
+        else:
+            h = embed(params["embed"], tokens)          # (B, S, d)
+        h = self._scale_embeddings(h)
+        if cfg.num_image_tokens and "image_embeds" in batch:
+            img = batch["image_embeds"].to(h.dtype) @ params["img_proj"]
+            h = torch.cat([img, h[:, cfg.num_image_tokens:]], dim=1)
+        return h
+
+    # -------------------------------------------------------------- backbone
+    def backbone(self, params, h, positions):
+        """Token embeddings -> final hidden states."""
+        cfg = self.cfg
+        if cfg.local_global_pattern:
+            pat = cfg.local_global_pattern
+
+            def period_body(hh, p):
+                for layer, kind in zip(_unbind(p), pat):
+                    hh = self._dense_block(layer, hh, positions, kind)
+                return hh
+
+            body = maybe_remat(period_body, cfg.remat)
+            for p in _unbind(params["periods"]):
+                h = body(h, p)
+            if "tail" in params:
+                tail_body = maybe_remat(
+                    lambda hh, p: self._dense_block(p, hh, positions, pat[0]),
+                    cfg.remat)
+                for p in _unbind(params["tail"]):
+                    h = tail_body(h, p)
+            return h
+        kind = "L" if cfg.sliding_window else "G"
+        body = maybe_remat(
+            lambda hh, p: self._dense_block(p, hh, positions, kind), cfg.remat)
+        for p in _unbind(params["blocks"]):
+            h = body(h, p)
+        return h
+
+    # ------------------------------------------------------------------ train
+    def loss_fn(self, params, batch):
+        """batch: tokens and targets (B,S) or (B,K,S) int, loss_mask (B,S)
+        [, image_embeds] -> (loss, {"ce", "loss"})."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        S = tokens.shape[-1]
+        B = tokens.shape[0]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        h = self._embed_tokens(params, batch)
+        h = self.backbone(params, h, positions)
+        h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
+        logits = self._logits(params, h)
+        targets = batch["targets"]
+        mask = batch.get("loss_mask")
+        if cfg.num_codebooks:       # (B,S,K,V) vs targets (B,K,S)
+            t = targets.movedim(1, 2)
+            m = mask[..., None].expand(t.shape) if mask is not None else None
+            ce = softmax_cross_entropy(logits, t, m)
+        else:
+            ce = softmax_cross_entropy(logits, targets, mask)
+        return ce, {"ce": ce, "loss": ce}
 
     # ---------------------------------------------------------------- caches
     def cache_specs(self, batch: int, max_len: int):
@@ -195,9 +299,7 @@ class Model:
                 h = e if h is None else h + e
         else:
             h = embed(params["embed"], tokens[:, None])     # (B,1,d)
-        # the scale is rounded to h's dtype before the product, as in JAX
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
-                             device=h.device)
+        h = self._scale_embeddings(h)
 
         if cfg.local_global_pattern:
             h = self._decode_pattern(params, cache, h, pos)

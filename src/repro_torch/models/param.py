@@ -7,11 +7,13 @@ pytree gives it, so weights carry over between the two packages by name.
 From one spec tree we derive:
 
 * ``materialize(specs, generator, device)`` — real tensors,
+* ``tree_map(fn, tree, *rest)``              — ``fn`` over matching leaves,
 * ``abstract(specs)``                       — tensors on the meta device (no
                                               allocation, even for 671B),
 * ``count_params`` / ``param_bytes``,
-* ``from_numpy_tree(tree, device)``         — a JAX parameter pytree, turned
-                                              into numpy arrays, as tensors.
+* ``from_numpy_tree(tree, device)``         — a JAX pytree (parameters or a
+                                              train state), turned into numpy
+                                              arrays, as tensors.
 
 The logical axes are kept on each spec for the distribution slice; nothing in
 this module maps them to devices yet.
@@ -69,6 +71,13 @@ def unflatten(pairs) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[name] = leaf
     return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same paths."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
 
 
 def abstract(specs, dtype_override: Optional[str] = None):
