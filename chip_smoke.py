@@ -9,7 +9,7 @@ network.  Phases, one line of output each; any failure raises and the exit
 code is not 0:
 
 1. environment: the card's name and power limit, versions, TF32 off, the
-   decode-attention and flash-attention kernels built from
+   decode-attention, flash-attention and ssd-scan kernels built from
    ``src/repro_torch/kernels`` (one nvcc each, started together), with
    ptxas's register and spill counts;
 2. each kernel against its plain PyTorch version on the card, in fp32 and
@@ -22,7 +22,12 @@ code is not 0:
    starcoder2's and gemma3's sliding windows, D of 32, 40, 96 and 128, G of
    1, 2 and 8; and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
-   recompute);
+   recompute).  SSD scan: the JAX ssd sweep's shapes, mamba2-1.3b's training
+   shape (B=4, S=2048, nh=64, P=64, N=128, 8 chunks of 256), zamba2-2.7b's
+   (nh=80, N=64) and a long sequence (B=1, S=32768), output and final
+   state, against the per-token oracle up to S=1024 and ``ssd_chunked``
+   beyond; and one gradient through its autograd function (wiring only, as
+   for flash);
 3. serve: ``Server.generate`` on full-width gemma-2b (18 layers, bf16, random
    weights from a seeded generator): 32 prompt + 32 new tokens for a batch
    of 4, launched through the decode kernel once per layer and token; then
@@ -39,9 +44,29 @@ code is not 0:
    card, and its resumption from the lake's checkpoint;
 6. trace: where one full-width decode step and one full-width train step
    spend their time on the device (``torch.profiler``);
-7. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
+7. train mamba2: ``Trainer.run`` on full-width mamba2-1.3b (48 layers, bf16,
+   remat "full"): 8 steps of batch 4 x 2048 streamed from a lake of
+   documents whose tokens follow Zipf's law, through the ssd kernel twice
+   per layer and step; finite and falling loss, one checkpoint that
+   restores bit for bit, and the loss and gradient norm of one batch through
+   the kernel and through plain ``ssd_chunked`` within 2e-2; then the trace
+   of one of its train steps;
+8. zamba2: the loss and gradients of one batch of 2 x 1024 tokens on
+   full-width zamba2-2.7b (54 mamba layers, the shared attention block 9
+   times, bf16, remat "full"), through the ssd and flash kernels (2 x 54 and
+   2 x 9 launches) and through the plain impls, within 2e-2;
+9. serve ssm: phase 3's ``serve`` on full-width mamba2-1.3b and
+   zamba2-2.7b: zamba2 through the decode kernel 9 times a token (head dim
+   80), its decode logits through the kernel and plain attention within
+   2e-2 in fp32 (and, reported, in bf16); mamba2's decode logits at 512
+   positions (two chunks) against the train forward's through the ssd
+   kernel, within 2e-2 relative in fp32 (and, reported, in bf16; see
+   ``scripts/ssm_bf16_drift.py`` for the JAX package's own bf16 drift);
+10. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
-   version's and one PyTorch call's, at the main path's shapes.
+   version's and one PyTorch call's (none computes SSD), at the main path's
+   shapes; a ``[bound]`` line for each timed shape with the bytes and
+   operations its bound comes from; and the script's total time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +74,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import resource
@@ -67,17 +93,24 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.core.dataset import Dataset  # noqa: E402
 from repro_torch.core.storage import MemoryProvider  # noqa: E402
+from repro_torch.data import build_token_dataset  # noqa: E402
 from repro_torch.distributed import HostFailure  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref, ops as da_ops)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, ops as fa_ops, ref_attention)
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    ops as ssd_ops, ref_ssd, ssd)
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
 from repro_torch.launch.steps import train_state_specs  # noqa: E402
 from repro_torch.launch.train import Trainer, TrainJob  # noqa: E402
 from repro_torch.models import abstract, build_model, named_leaves  # noqa: E402
-from repro_torch.models.param import unflatten  # noqa: E402
+from repro_torch.models.layers import rmsnorm  # noqa: E402
+from repro_torch.models.param import tree_map, unflatten  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 DECODE_RTOL = 2e-2                                  # tests/test_models.py:83
@@ -90,6 +123,13 @@ GEMMA = dict(B=4, H=8, Hkv=1, D=256)
 TRAIN_JOB = TrainJob(arch="gemma-2b", smoke=False, steps=8, global_batch=4,
                      seq_len=1024, warmup=2, num_docs=16, checkpoint_every=8,
                      log_every=1)
+# the mamba2 train phase: full-width mamba2-1.3b, 8 steps of 4 x 2048 tokens
+MAMBA2_JOB = TrainJob(arch="mamba2-1.3b", smoke=False, steps=8,
+                      global_batch=4, seq_len=2048, warmup=2, num_docs=16,
+                      checkpoint_every=8, log_every=1)
+# each kernel's wrapper and its launch counter
+COUNTED = {"decode_attention": decode_attention,
+           "flash_attention": flash_attention, "ssd_scan": ssd}
 
 # the shapes of tests/test_kernels.py::test_decode_attention_sweep
 SWEEP = [
@@ -108,7 +148,8 @@ FULL = [(4, 8, 1, 256, 64, pos, 0) for pos in (0, 31, 32, 63)] + \
 # (5 chunks of 8); G=3 with D=8 and a ring buffer; ragged T everywhere
 OTHER = [(2, 32, 32, 96, 300, 299, 0), (1, 64, 8, 128, 2048, 1500, 0),
          (2, 32, 16, 128, 1000, 999, 0), (1, 12, 1, 40, 77, 50, 0),
-         (3, 6, 2, 8, 33, 100, 33)]
+         (3, 6, 2, 8, 33, 100, 33)] + \
+    [(4, 32, 32, 80, 64, pos, 0) for pos in (0, 63)]   # zamba2's shared block
 
 # flash attention (B, S, H, Hkv, D, window): the shapes of
 # tests/test_kernels.py::test_flash_attention_sweep (G = 2, 8, 1, 3)
@@ -119,14 +160,53 @@ FLASH_GEMMA = [(4, 1024, 8, 1, 256, 0), (1, 1000, 8, 1, 256, 0),
                (2, 77, 8, 1, 256, 0)]
 # starcoder2-3b's window 4096 past it (H=24, Hkv=2, D=128); gemma3-27b's
 # local layers (window 1024, G=2, D=128); phi-3-vision's D=96 (G=1); D=40
-# with a ragged S; D=32 and G=8 with a window shorter than a tile
+# with a ragged S; D=32 and G=8 with a window shorter than a tile; zamba2's
+# shared block at its train phase's shape (H=Hkv=32, D=80)
 FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 500, 32, 32, 96, 0), (1, 300, 4, 1, 40, 0),
-               (2, 333, 16, 2, 32, 20)]
+               (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
+
+# the ssd scan (B, S, nh, P, G, N, Q): the shapes of
+# tests/test_kernels.py::test_ssd_sweep (two chunks and more, one chunk, G=4)
+SSD_SWEEP = [(2, 128, 4, 32, 1, 16, 32), (1, 256, 8, 64, 2, 32, 64),
+             (2, 64, 2, 16, 1, 8, 64), (1, 96, 4, 32, 4, 16, 32)]
+# mamba2-1.3b's training shape (8 chunks), zamba2-2.7b's widths (nh=80,
+# N=64) at its phase's 2 x 1024, and a long sequence at mamba2's widths
+SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 256)
+SSD_ZAMBA2 = (2, 1024, 80, 64, 1, 64, 256)
+SSD_LONG = (1, 32768, 64, 64, 1, 128, 256)
+SSD_REF_MAX_S = 1024      # the per-token oracle's loop is cheap up to here
 
 
 def _say(tag: str, **fields) -> None:
     print(f"[{tag}] " + json.dumps(fields), flush=True)
+
+
+def _attention_layers(cfg) -> int:
+    """Attention layers a token passes: every layer of a dense model, none
+    in mamba2, zamba2's shared block once per period."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid.shared_attn_period
+    return cfg.num_layers
+
+
+def _reset_counts() -> None:
+    for fn in COUNTED.values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def _check_counts(counts: dict, want: dict, what: str) -> None:
+    """Every kernel launched exactly as often as ``want`` says (0 if not
+    named) on the path just driven."""
+    full = {name: want.get(name, 0) for name in COUNTED}
+    if counts != full:
+        raise AssertionError(f"{what}: kernel launches {counts}, want {full}")
 
 
 def _inputs(B, H, Hkv, D, T, dtype, seed=0):
@@ -146,7 +226,8 @@ def environment():
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = {"decode_attention": da_ops, "flash_attention": fa_ops}
+    kernels = {"decode_attention": da_ops, "flash_attention": fa_ops,
+               "ssd_scan": ssd_ops}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc each, together
         for built in [pool.submit(ops.build) for ops in kernels.values()]:
@@ -256,9 +337,95 @@ def flash_vs_plain():
     return errors
 
 
+def _ssd_inputs(B, S, nh, P, G, N, dtype, seed=0):
+    """tests/test_kernels.py::test_ssd_sweep's distributions, from numpy."""
+    rng = np.random.default_rng(seed)
+
+    def cuda(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda")
+    x = cuda(rng.standard_normal((B, S, nh, P), dtype=np.float32) * 0.5)
+    dt = cuda(rng.uniform(1e-3, 0.1, (B, S, nh)))
+    A = cuda(-rng.uniform(0.5, 4.0, (nh,)))
+    Bm = cuda(rng.standard_normal((B, S, G, N), dtype=np.float32) * 0.3)
+    Cm = cuda(rng.standard_normal((B, S, G, N), dtype=np.float32) * 0.3)
+    return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
+
+
+def ssd_vs_plain():
+    """The ssd kernel against its plain version (the per-token oracle up to
+    ``SSD_REF_MAX_S``, ``ssd_chunked`` beyond), with ``kernel_vs_plain``'s two
+    gates on the output, and the final state (fp32 in both) within the fp32
+    ``TOL`` of the plain version computed in fp32.  Then one gradient through
+    its autograd function against plain autograd: its backward recomputes
+    through ``ssd_chunked``, as in JAX, so that check covers the wiring only;
+    the mamba2 and zamba2 phases' loss and gradient norm through the kernel
+    and through ``ssd_chunked`` are where its output reaches the gradients."""
+    errors = {}
+    tol32 = TOL[torch.float32]
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+            for B, S, nh, P, G, N, Q in SSD_SWEEP + [SSD_MAMBA2, SSD_ZAMBA2,
+                                                      SSD_LONG]:
+                x, dt, A, Bm, Cm = _ssd_inputs(B, S, nh, P, G, N, dtype)
+                y, st = ssd(x, dt, A, Bm, Cm, chunk=Q)
+                torch.cuda.synchronize()
+                plain = (ref_ssd if S <= SSD_REF_MAX_S
+                         else functools.partial(ssd_chunked, chunk=Q))
+                want32, st32 = plain(x.float(), dt, A, Bm.float(), Cm.float())
+                want = (want32 if dtype == torch.float32
+                        else plain(x, dt, A, Bm, Cm)[0].float())
+                diff = (y.float() - want).abs()
+                diff32 = (y.float() - want32).abs()
+                dst = (st - st32).abs()
+                name = (f"{str(dtype)[6:]} B{B} S{S} nh{nh} P{P} G{G} N{N} "
+                        f"Q{Q}")
+                errors[name] = diff.max().item()
+                ok = (bool((diff <= TOL[dtype] + TOL[dtype] * want.abs()).all())
+                      and bool((diff32 <= tol32
+                                + half_ulp * want32.abs()).all())
+                      and bool((dst <= tol32 + tol32 * st32.abs()).all())
+                      and bool(torch.isfinite(y).all())
+                      and st.dtype == torch.float32 and y.dtype == dtype)
+                if not ok:
+                    raise AssertionError(
+                        f"ssd kernel disagrees with plain at {name}: max|err| "
+                        f"{errors[name]}, against fp32 {diff32.max().item()}, "
+                        f"state {dst.max().item()}")
+                del x, dt, A, Bm, Cm, y, st, want, want32, st32, diff, diff32
+                torch.cuda.empty_cache()
+    inputs = [t.requires_grad_() for t in
+              _ssd_inputs(1, 512, 64, 64, 1, 128, torch.bfloat16, seed=1)]
+    gen = torch.Generator("cuda").manual_seed(2)
+    gy = torch.randn(inputs[0].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    gst = torch.randn((1, 64, 128, 64), device="cuda", generator=gen)
+    got = torch.autograd.grad(ssd(*inputs, chunk=256), inputs, (gy, gst))
+    want = torch.autograd.grad(ssd_chunked(*inputs, chunk=256), inputs,
+                               (gy, gst))
+    grad_err = max((a.float() - b.float()).abs().max().item()
+                   for a, b in zip(got, want))
+    tol = TOL[torch.bfloat16]
+    if not all(bool(((a.float() - b.float()).abs()
+                     <= tol + tol * b.float().abs()).all())
+               for a, b in zip(got, want)):
+        raise AssertionError(f"ssd gradient differs from plain: {grad_err}")
+    _say("ssd_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
+         grad_max_abs_err=grad_err, errors=errors)
+    return errors
+
+
 # ----------------------------------------------------------------- phase 3
-def serve(card: str):
-    job = ServeJob(arch="gemma-2b", smoke=False, batch=4, prompt_len=32,
+def serve(card: str, arch: str):
+    """``Server.generate`` on full-width ``arch``: batch 4, 32 prompt + 32
+    new tokens, greedy; the output is checked, a second server gives the
+    same tokens, and the decode kernel is launched once per attention layer
+    and token.  Then the family's comparison: for a model with attention,
+    the served positions through the decode kernel and through plain
+    attention (held in the served dtype for gemma-2b, in fp32 for zamba2);
+    for mamba2, which decodes through no kernel, its decode logits against
+    the train forward's through the ssd kernel."""
+    job = ServeJob(arch=arch, smoke=False, batch=4, prompt_len=32,
                    max_new_tokens=32)
     torch.cuda.reset_peak_memory_stats()
     srv = Server(job)
@@ -267,57 +434,134 @@ def serve(card: str):
         0, cfg.vocab_size, (job.batch, job.prompt_len)).astype(np.int32)
     total = job.prompt_len + job.max_new_tokens
 
-    decode_attention.launches = 0
+    _reset_counts()
     out = srv.generate(prompts)
-    launches = decode_attention.launches
+    counts = _counts()
 
     if out.shape != (job.batch, total):
-        raise AssertionError(f"output shape {out.shape}")
+        raise AssertionError(f"{arch}: output shape {out.shape}")
     if not (out[:, :job.prompt_len] == prompts).all():
-        raise AssertionError("prompt not preserved")
+        raise AssertionError(f"{arch}: prompt not preserved")
     if not ((out >= 0) & (out < cfg.vocab_size)).all():
-        raise AssertionError("token id out of vocab")
-    if launches != cfg.num_layers * total:
-        raise AssertionError(f"kernel launched {launches} times, want "
-                             f"{cfg.num_layers} x {total}")
+        raise AssertionError(f"{arch}: token id out of vocab")
+    _check_counts(counts, {"decode_attention": _attention_layers(cfg) * total},
+                  arch)
     first = dict(srv.stats, tokens_per_s=srv.throughput())
 
     again = Server(job)
-    out2 = again.generate(prompts)
-    if not np.array_equal(out, out2):
-        raise AssertionError("a second Server gave other greedy tokens")
+    if not np.array_equal(out, again.generate(prompts)):
+        raise AssertionError(f"{arch}: a second Server gave other tokens")
     second = dict(again.stats, tokens_per_s=again.throughput())
     del again
 
-    # the served tokens at the served positions, on a cache of the served
-    # length, through the kernel and through plain torch attention
-    steps = total
-    logits = {}
-    with torch.inference_mode():
-        for impl in ("torch", "kernel"):
-            model = build_model(cfg, attn_impl=impl)
-            cache = model.init_cache(job.batch, total, srv.device)
-            per_step = []
-            for t in range(steps):
-                tok = torch.from_numpy(out[:, t]).to(srv.device, torch.int64)
-                lg, cache = model.decode_step(srv.params, cache, tok, t,
-                                              head=srv.head)
-                per_step.append(lg.float())
-            logits[impl] = torch.stack(per_step)
-    if not torch.isfinite(logits["kernel"]).all():
-        raise AssertionError("non-finite logits")
-    rel = max(((logits["kernel"][t] - logits["torch"][t]).abs().max()
-               / logits["torch"][t].abs().max()).item() for t in range(steps))
-    if not rel < DECODE_RTOL:
-        raise AssertionError(f"kernel vs torch attention: {rel} >= {DECODE_RTOL}")
+    if cfg.family == "ssm":
+        check = "decode vs the train forward through the ssd kernel"
+        rel, steps = _decode_vs_forward(srv, 512), 512
+    else:
+        check = "decode kernel vs torch attention"
+        held = cfg.dtype if cfg.family == "dense" else "float32"
+        rel, steps = _decode_kernel_vs_torch(srv, out, held), total
     _say("serve", card=card, arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, batch=job.batch, prompt_len=job.prompt_len,
-         new_tokens=job.max_new_tokens, launches=launches,
-         first_server=first, second_server=second,
-         kernel_vs_torch_rel=rel, kernel_vs_torch_steps=steps,
+         new_tokens=job.max_new_tokens, launches=counts,
+         first_server=first, second_server=second, check=check,
+         check_rel=rel, check_steps=steps,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          sample=out[0, job.prompt_len:job.prompt_len + 8].tolist())
-    return srv, launches
+    return srv, counts["decode_attention"]
+
+
+def _decode_kernel_vs_torch(srv, out, held: str) -> dict:
+    """The served tokens at the served positions, on a cache of the served
+    length, through the decode kernel and through plain attention: the
+    largest difference over the vocabulary's real slots relative to the
+    largest logit, in the served dtype and in ``held`` (the served weights
+    cast to fp32 for "float32").  Held at ``DECODE_RTOL`` in ``held`` only:
+    zamba2's 54 mamba layers of random weights carry bf16's rounding of the
+    attention output forward to several times that, where gemma-2b's 18
+    dense layers do not, so zamba2 is held in fp32 and its bf16 reported."""
+    cfg = srv.cfg
+    rels = {}
+    for dtype in dict.fromkeys((held, cfg.dtype)):
+        params = (srv.params if dtype == cfg.dtype
+                  else tree_map(lambda p: p.float(), srv.params))
+        logits = {}
+        with torch.inference_mode():
+            for impl in ("torch", "kernel"):
+                model = build_model(cfg.with_(dtype=dtype), attn_impl=impl)
+                cache = model.init_cache(out.shape[0], out.shape[1],
+                                         srv.device)
+                per_step = []
+                for t in range(out.shape[1]):
+                    tok = torch.from_numpy(out[:, t]).to(srv.device,
+                                                         torch.int64)
+                    lg, cache = model.decode_step(params, cache, tok, t,
+                                                  head=srv.head)
+                    per_step.append(lg[:, :cfg.vocab_size].float())
+                logits[impl] = torch.stack(per_step)
+        if not torch.isfinite(logits["kernel"]).all():
+            raise AssertionError("non-finite logits")
+        rels[dtype] = max(((logits["kernel"][t] - logits["torch"][t])
+                           .abs().max() / logits["torch"][t].abs().max()).item()
+                          for t in range(out.shape[1]))
+        del params, logits
+    if not rels[held] < DECODE_RTOL:
+        raise AssertionError(f"kernel vs torch attention: {rels}")
+    return rels
+
+
+def _decode_vs_forward(srv, steps: int) -> dict:
+    """tests/test_models.py's rule at full width, batch 1: the decode logits
+    of each of ``steps`` positions against the train forward's, whose scan
+    runs through the ssd kernel, as the largest difference over the
+    vocabulary's real slots relative to the largest logit (the pad slots
+    are -1e30 in both).  Held at 2e-2 in fp32, the served weights cast up.
+    In the served bf16 it is reported, not held: the two paths round at
+    other places (the recurrence rounds dt, each state increment and the
+    state to bf16 where the kernel sums in fp32), and 48 layers of random
+    weights carry that forward.  Beside it, the same difference between the
+    forward through the kernel and through plain ``ssd_chunked``."""
+    cfg, V = srv.cfg, srv.cfg.vocab_size
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, V, (1, steps))).to(srv.device)
+    positions = torch.arange(steps, device=srv.device).expand(1, steps)
+    out = {}
+    for dtype in dict.fromkeys(("float32", cfg.dtype)):
+        params = (srv.params if dtype == cfg.dtype
+                  else tree_map(lambda p: p.float(), srv.params))
+        dcfg = cfg.with_(dtype=dtype)
+        fwd = {}
+        with torch.inference_mode():
+            for impl in ("kernel", "torch"):
+                model = build_model(dcfg, attn_impl=impl)
+                _reset_counts()
+                h = model._embed_tokens(params, {"tokens": tokens})
+                h = model.backbone(params, h, positions)
+                fwd[impl] = model._logits(params, rmsnorm(
+                    params["final_ln"], h, cfg.norm_eps), srv.head)[0, :, :V]
+                _check_counts(_counts(), {"ssd_scan": cfg.num_layers}
+                              if impl == "kernel" else {}, "mamba2 forward")
+            model = build_model(dcfg)
+            cache = model.init_cache(1, steps, srv.device)
+            rel = []
+            for t in range(steps):
+                got, cache = model.decode_step(params, cache, tokens[:, t], t,
+                                               head=srv.head)
+                got = got[0, :V]
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"non-finite decode logits at {t}")
+                want = fwd["kernel"][t]
+                rel.append(((got - want).abs().max()
+                            / want.abs().max()).item())
+            fwd_rel = ((fwd["kernel"] - fwd["torch"]).abs().amax(-1)
+                       / fwd["torch"].abs().amax(-1)).max().item()
+        out[dtype] = {"max": max(rel), "argmax": int(np.argmax(rel)),
+                      "at": {t: rel[t] for t in (0, 1, 255, 256, steps - 1)},
+                      "forward_kernel_vs_torch": fwd_rel}
+        del params, fwd
+    if not out["float32"]["max"] < DECODE_RTOL:
+        raise AssertionError(f"mamba2 decode vs forward: {out}")
+    return out
 
 
 # ----------------------------------------------------------------- phase 4
@@ -346,26 +590,52 @@ def loss_and_grad_norm(model, params, batch):
     return loss.item(), norm.item()
 
 
-def train(card: str):
-    job = TRAIN_JOB
+def train_launches(cfg, steps: int) -> dict:
+    """Each kernel's launches in ``steps`` forward and backward passes: twice
+    per use with remat "full" (the forward, and again under remat in the
+    backward)."""
+    per = (2 if cfg.remat == "full" else 1) * steps
+    ssd_layers = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": per * _attention_layers(cfg),
+            "ssd_scan": per * ssd_layers}
+
+
+def zipf_lake(job: TrainJob, vocab_size: int, a: float = 1.2) -> Dataset:
+    """``build_token_dataset``'s lake (its tensors and their layout), with
+    the tokens of each document drawn by Zipf's law, ids by rank.  Words in
+    text follow it with an exponent near 1 (Zipf, 1949); numpy's sampler
+    needs ``a`` > 1, and 1.2 is an arbitrary choice above that.  From
+    uniform tokens there is nothing to learn but a flat output, and 8 steps
+    at lr 3e-4 do not lower mamba2's loss beyond its noise.  The step's time
+    does not depend on the token values."""
+    ds = build_token_dataset(Dataset(MemoryProvider()), num_docs=0,
+                             commit=False)
+    rng = np.random.default_rng(job.seed)
+    for i in range(job.num_docs):
+        n = int(job.seq_len * 4 * rng.uniform(0.75, 1.25))
+        ranks = np.minimum(rng.zipf(a, n), vocab_size) - 1
+        ds.append({"tokens": ranks.astype(np.int32), "doc_id": np.int64(i)})
+    ds.commit(f"zipf tokens x{job.num_docs}")
+    return ds
+
+
+def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
+          data_ds=None):
     torch.cuda.reset_peak_memory_stats()
     ckpt = _TimedCheckpoints(MemoryProvider(), keep=job.keep_checkpoints)
-    trainer = Trainer(job, ckpt=ckpt)
+    trainer = Trainer(job, ckpt=ckpt, data_ds=data_ds)
     cfg = trainer.cfg
 
-    flash_attention.launches = 0
+    _reset_counts()
     out = trainer.run(restore=False)
-    launches = flash_attention.launches
+    counts = _counts()
 
     losses = [h["loss"] for h in out["history"]]
     if len(losses) != job.steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
-    want = (2 if cfg.remat == "full" else 1) * cfg.num_layers * job.steps
-    if launches != want:
-        raise AssertionError(f"flash kernel launched {launches} times, want "
-                             f"{want}")
+    _check_counts(counts, train_launches(cfg, job.steps), tag)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state = out["state"]
     if ckpt.saved_steps != [job.steps]:
@@ -386,7 +656,7 @@ def train(card: str):
     state_gb = sum(t.numel() * t.element_size()
                    for _, t in named_leaves(state)) / 1e9
 
-    # one batch, the trained params: kernel and plain attention agree
+    # one batch, the trained params: the kernels and the plain impls agree
     batch = next(trainer._batches())
     compare = {impl: loss_and_grad_norm(build_model(cfg, attn_impl=impl),
                                         state["params"], batch)
@@ -395,14 +665,14 @@ def train(card: str):
            / abs(compare["torch"][i]) for i, name in enumerate(("loss",
                                                                 "grad_norm"))}
     if not max(rel.values()) < TRAIN_RTOL:
-        raise AssertionError(f"kernel vs torch attention: {compare}")
+        raise AssertionError(f"kernel vs torch impls: {compare}")
 
     step_s = statistics.median(h["sec"] for h in out["history"][1:])
     tokens = job.global_batch * job.seq_len
-    _say("train", card=card, arch=cfg.name, layers=cfg.num_layers,
+    _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, remat=cfg.remat,
          batch=job.global_batch, seq_len=job.seq_len, steps=job.steps,
-         warmup=job.warmup, lr=job.lr, launches=launches,
+         warmup=job.warmup, lr=job.lr, launches=counts,
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          step_s=[h["sec"] for h in out["history"]], median_step_s=step_s,
          tokens_per_s=tokens / step_s, peak_memory_gb=peak_gb,
@@ -410,7 +680,7 @@ def train(card: str):
          save_copy_s=ckpt.copy_s, save_write_s=ckpt.write_s,
          restore_s=restore_s, host_peak_gb=host_peak_gb,
          kernel_vs_torch=compare, kernel_vs_torch_rel=rel)
-    return trainer, state, batch, launches
+    return trainer, state, batch, counts
 
 
 # ----------------------------------------------------------------- phase 5
@@ -516,10 +786,10 @@ def kernel_times(fn, calls: int, top: int = 8):
             "kernel_kinds": len(kernels)}
 
 
-def trace_train(trainer, state, batch, card: str):
+def trace_train(trainer, state, batch, card: str, tag: str = "trace_train"):
     """Where one full-width train step spends its time (it trains on)."""
     step = kernel_times(lambda: trainer.step_fn(state, batch), calls=2, top=16)
-    _say("trace_train", card=card, arch=trainer.cfg.name,
+    _say(tag, card=card, arch=trainer.cfg.name,
          batch=list(batch["tokens"].shape), train_step=step)
 
 
@@ -538,7 +808,43 @@ def trace(srv, card: str):
          decode_attention_32k=attn)
 
 
-# ----------------------------------------------------------------- phase 7
+# ----------------------------------------------------------------- phase 8
+def zamba2(card: str):
+    """Loss and gradients of one batch on full-width zamba2-2.7b through the
+    kernels and through the plain impls; no optimizer (its state would be a
+    27 GB checkpoint)."""
+    cfg = get_arch("zamba2-2.7b")
+    B, S = 2, 1024
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg).init(torch.Generator("cuda").manual_seed(0),
+                                   "cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to("cuda")
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    out, secs, counts = {}, {}, {}
+    for impl in ("kernel", "torch"):
+        _reset_counts()
+        t0 = time.perf_counter()
+        out[impl] = loss_and_grad_norm(build_model(cfg, attn_impl=impl),
+                                       params, batch)
+        torch.cuda.synchronize()
+        secs[impl] = time.perf_counter() - t0
+        counts[impl] = _counts()
+    _check_counts(counts["kernel"], train_launches(cfg, 1), "zamba2")
+    _check_counts(counts["torch"], {}, "zamba2 plain")
+    rel = {name: abs(out["kernel"][i] - out["torch"][i]) / abs(out["torch"][i])
+           for i, name in enumerate(("loss", "grad_norm"))}
+    if not (max(rel.values()) < TRAIN_RTOL
+            and all(math.isfinite(v) for v in out["kernel"])):
+        raise AssertionError(f"zamba2 kernel vs torch impls: {out}")
+    _say("zamba2", card=card, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, remat=cfg.remat, batch=B,
+         seq_len=S, launches=counts["kernel"], loss_and_grad_norm=out,
+         kernel_vs_torch_rel=rel, seconds=secs,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+# ---------------------------------------------------------------- phase 10
 def library_call(q, k, v, pos):
     """``scaled_dot_product_attention`` over the cache with a validity mask:
     the yardstick, never called by the port."""
@@ -550,26 +856,38 @@ def library_call(q, k, v, pos):
                                           enable_gqa=True)
 
 
+def _bound(kernel: str, shape: str, nbytes: int, ops: int,
+           ops_per_s: float, card: str) -> dict:
+    """The least time the card could take: the larger of ``nbytes`` over the
+    memory rate and ``ops`` over ``ops_per_s``.  The counts it comes from go
+    on a ``[bound]`` line of their own."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    _say("bound", kernel=kernel, shape=shape, bytes=nbytes, ops=ops,
+         bytes_ms=t_bytes, ops_ms=t_ops, ops_per_s=ops_per_s,
+         fp32_cores_ms=ops / FP32_OPS_PER_S * 1e3, card=card)
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def timings(T: int, pos: int, card: str):
     B, H, Hkv, D = GEMMA["B"], GEMMA["H"], GEMMA["Hkv"], GEMMA["D"]
     q, k, v = _inputs(B, H, Hkv, D, T, torch.bfloat16, seed=5)
     limit = min(pos + 1, T)
     nbytes = (2 * B * limit * Hkv * D + 2 * B * H * D) * 2
     ops = 4 * B * H * limit * D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    shape = f"B={B} H={H} Hkv={Hkv} D={D} T={T} pos={pos} bf16"
     lib = library_call(q, k, v, pos)
     ref = decode_attention_ref(q, k, v, pos=pos)
     lib_err = (lib[:, :, 0].float() - ref.float()).abs().max().item()
     return {
-        "shape": f"B={B} H={H} Hkv={Hkv} D={D} T={T} pos={pos} bf16",
+        "shape": shape,
         "ms": device_ms(lambda: decode_attention(q, k, v, pos=pos)),
         "call_ms": call_ms(lambda: decode_attention(q, k, v, pos=pos)),
         "plain_ms": device_ms(lambda: decode_attention_ref(q, k, v, pos=pos)),
         "library_ms": device_ms(lambda: library_call(q, k, v, pos)),
         "library_max_abs_err": lib_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **_bound("decode_attention", shape, nbytes, ops, FP32_OPS_PER_S, card),
         "card": card,
     }
 
@@ -581,8 +899,7 @@ def flash_timings(B: int, S: int, card: str):
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
     ops = 4 * B * H * D * pairs                 # QK^T and PV, 2 each a pair
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal bf16"
     q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
 
     def library():
@@ -591,32 +908,70 @@ def flash_timings(B: int, S: int, card: str):
     lib_err = (library().transpose(1, 2).float()
                - ref_attention(q, k, v).float()).abs().max().item()
     return {
-        "shape": f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal bf16",
+        "shape": shape,
         "ms": device_ms(lambda: flash_attention(q, k, v)),
         "plain_ms": device_ms(lambda: ref_attention(q, k, v), calls=5,
                               replays=4),
         "library_ms": device_ms(library),
         "library_max_abs_err": lib_err,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "fp32_cores_ms": ops / FP32_OPS_PER_S * 1e3,
+        **_bound("flash_attention", shape, nbytes, ops, BF16_OPS_PER_S, card),
         "card": card,
     }
 
 
+def ssd_timings(shape, card: str):
+    """The ssd kernel in bf16: its bound is the larger of the bytes (x, dt,
+    A, B and C read once, y and the state written once) over the memory rate
+    and the operations, Q(Q+1)(N+P) + 4QNP for each (b, h, chunk), at the
+    bf16 tensor-core peak."""
+    B, S, nh, P, G, N, Q = shape
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, nh, P, G, N, torch.bfloat16, seed=5)
+    nbytes = (2 * B * S * nh * P * 2 + B * S * nh * 4 + nh * 4
+              + 2 * B * S * G * N * 2 + B * nh * N * P * 4)
+    ops = B * nh * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    shape = f"B={B} S={S} nh={nh} P={P} G={G} N={N} Q={Q} bf16"
+    with torch.no_grad():
+        out = {
+            "shape": shape,
+            "ms": device_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=Q)),
+            "plain_ms": device_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
+                                                      chunk=Q),
+                                  calls=3, replays=3),
+            **_bound("ssd_scan", shape, nbytes, ops, BF16_OPS_PER_S, card),
+            "library_ms": None,
+            "card": card,
+        }
+    return out
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = environment()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
-    srv, launches = serve(card)
+    ssd_errors = ssd_vs_plain()
+    srv, launches = serve(card, "gemma-2b")
     trace(srv, card)
     del srv
     torch.cuda.empty_cache()
-    trainer, state, batch, flash_launches = train(card)
+    trainer, state, batch, counts = train(card)
+    flash_launches = counts["flash_attention"]
     resume(card)
     trace_train(trainer, state, batch, card)
     del trainer, state, batch
     torch.cuda.empty_cache()
+    lake = zipf_lake(MAMBA2_JOB, get_arch(MAMBA2_JOB.arch).vocab_size)
+    trainer, state, batch, counts = train(card, MAMBA2_JOB, "train_mamba2",
+                                          lake)
+    ssd_launches = counts["ssd_scan"]
+    trace_train(trainer, state, batch, card, "trace_train_mamba2")
+    del trainer, state, batch, lake
+    torch.cuda.empty_cache()
+    zamba2(card)
+    torch.cuda.empty_cache()
+    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+        serve(card, arch)
+        torch.cuda.empty_cache()
     serving = timings(64, 63, card)
     long = timings(32768, 32767, card)
     training = flash_timings(4, 1024, card)
@@ -645,7 +1000,23 @@ def main() -> None:
         "serving_shape": serving,
         "long_shape": long,
     }
-    print(json.dumps({"kernels": [entry, flash_entry]}), flush=True)
+    ssd_train = ssd_timings(SSD_MAMBA2, card)
+    ssd_long = ssd_timings(SSD_LONG, card)
+    ssd_entry = {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:77",
+        "launches": ssd_launches,
+        "max_abs_err": max(ssd_errors.values()),
+        **{k: ssd_train[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")},
+        "library_note": "no single PyTorch call computes SSD",
+        "training_shape": ssd_train,
+        "long_shape": ssd_long,
+    }
+    _say("done", script_s=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": [entry, flash_entry, ssd_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

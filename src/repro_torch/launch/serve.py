@@ -3,7 +3,10 @@
 
 Requests are batched with a fixed batch of left-aligned prompts.  Each prompt
 is absorbed token by token through the decode step, then new tokens are
-decoded greedily or sampled with a temperature.
+decoded greedily or sampled with a temperature.  It serves the dense, audio
+and vlm families, mamba2 (ssm: the O(1) recurrence on a carried state) and
+zamba2 (hybrid: that recurrence, and the shared attention block through the
+decode-attention kernel).
 
 Greedy output is the JAX ``Server``'s, token for token.  Temperature sampling
 draws from a ``torch.Generator`` seeded from ``job.seed``, so its tokens differ

@@ -2,9 +2,11 @@
 checkpoint/restart into the lake, straggler detection and failure injection
 (port of ``repro.launch.train``).
 
-The trainer runs on the card unless the caller names another device; with no
-CUDA device present and none named, it raises.  Attention goes through the
-hand-written flash-attention kernel on the card.
+It trains the dense, audio and vlm families, mamba2 (ssm) and zamba2
+(hybrid).  The trainer runs on the card unless the caller names another
+device; with no CUDA device present and none named, it raises.  On the card,
+attention goes through the hand-written flash-attention kernel and the
+Mamba2 scan through the hand-written ssd-scan kernel.
 
 CLI:
     python -m repro_torch.launch.train --arch gemma-2b --steps 20

@@ -1,4 +1,5 @@
-"""Model zoo substrate: the dense, audio and vlm families behind one Model API."""
+"""Model zoo substrate: the dense, audio, vlm, ssm and hybrid families behind
+one Model API."""
 
 from .model import Model, build_model
 from .param import (ParamSpec, abstract, count_params, from_numpy_tree,

@@ -1,16 +1,23 @@
 """Model assembly for training and decode (PyTorch port of
 ``repro.models.model``).
 
-The dense, audio and vlm families (starcoder2, qwen2, gemma, gemma3,
-musicgen, phi3v backbones) are carried through ``loss_fn`` and
-``decode_step``.  The other families raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Carried through ``loss_fn`` and ``decode_step``:
+
+    dense   - starcoder2 / qwen2 / gemma / gemma3 / musicgen / phi3v backbones
+              (with the audio and vlm families)
+    ssm     - mamba2 (attention-free SSD, through the ssd-scan kernel)
+    hybrid  - zamba2 (mamba2 backbone + one SHARED GQA block every N layers)
+
+The moe family raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 
 Parameters are a nested dict of tensors with the JAX package's paths
 (``blocks/attn/wq``), stacked with a leading layer axis as there; a Python
-loop over the layer index (or the period, for local/global patterns) takes
-the place of ``lax.scan``, with ``maybe_remat`` around each iteration as JAX
-puts it around the scan body.
+loop over the layer index (or the period, for local/global patterns and
+zamba2) takes the place of ``lax.scan``, with ``maybe_remat`` around each
+iteration as JAX puts it around the scan body.  zamba2's shared attention
+block is closed over, not stacked, so its gradient sums over every
+invocation.
 
 API:
     m = build_model(cfg)
@@ -31,14 +38,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import ssm as ssm_lib
 from .layers import (embed, maybe_remat, mlp, mlp_specs, rmsnorm,
                      softmax_cross_entropy)
 from .param import ParamSpec, materialize
 
 _NOT_PORTED = {
     "moe": "ROADMAP Queue 1 item 9 (MoE family)",
-    "ssm": "ROADMAP Queue 1 item 11 (SSM and hybrid)",
-    "hybrid": "ROADMAP Queue 1 item 11 (SSM and hybrid)",
 }
 
 
@@ -72,14 +78,20 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family is not ported yet; see "
                 f"{_NOT_PORTED[cfg.family]}")
-        if cfg.family not in ("dense", "audio", "vlm"):
+        if cfg.family not in ("dense", "audio", "vlm", "ssm", "hybrid"):
             raise ValueError(cfg.family)
-        if cfg.attention != "gqa":
+        if cfg.family != "ssm" and cfg.attention != "gqa":
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.attention} attention is not ported yet; see "
                 "ROADMAP Queue 1 item 12 (MLA and MTP)")
         self.cfg = cfg
         self.attn_impl = attn_impl
+        if cfg.family == "hybrid":      # zamba2's shared attention block
+            hb = cfg.hybrid
+            self.shared_cfg = cfg.with_(
+                num_heads=hb.shared_attn_heads,
+                num_kv_heads=hb.shared_attn_kv_heads,
+                head_dim=cfg.d_model // hb.shared_attn_heads)
 
     # ------------------------------------------------------------ param specs
     def _dense_block_specs(self, stack):
@@ -90,6 +102,21 @@ class Model:
             "ln2": _ln(cfg.d_model, stack),
             "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.dtype, stack),
         }
+
+    def _ssm_block_specs(self, stack):
+        return {"ln": _ln(self.cfg.d_model, stack),
+                "ssm": ssm_lib.ssm_specs(self.cfg, stack)}
+
+    def _shared_attn_specs(self):
+        """zamba2 shared block: GQA + (optional) MLP, UNSTACKED."""
+        cfg = self.cfg
+        specs = {"ln1": _ln(cfg.d_model),
+                 "attn": attn.gqa_specs(self.shared_cfg)}
+        if cfg.hybrid.shared_attn_d_ff:
+            specs["ln2"] = _ln(cfg.d_model)
+            specs["mlp"] = mlp_specs(cfg.d_model, cfg.hybrid.shared_attn_d_ff,
+                                     cfg.mlp, cfg.dtype)
+        return specs
 
     def param_specs(self):
         cfg = self.cfg
@@ -113,7 +140,13 @@ class Model:
             specs["img_proj"] = ParamSpec((1024, cfg.d_model), (None, "fsdp"),
                                           dtype=cfg.dtype)
         specs["final_ln"] = _ln(cfg.d_model)
-        if cfg.local_global_pattern:
+        if cfg.family == "ssm":
+            specs["blocks"] = self._ssm_block_specs((cfg.num_layers,))
+        elif cfg.family == "hybrid":
+            P = cfg.hybrid.shared_attn_period
+            specs["shared_attn"] = self._shared_attn_specs()
+            specs["mamba"] = self._ssm_block_specs((cfg.num_layers // P, P))
+        elif cfg.local_global_pattern:
             P = len(cfg.local_global_pattern)
             n_per, n_tail = divmod(cfg.num_layers, P)
             specs["periods"] = self._dense_block_specs((n_per, P))
@@ -137,6 +170,21 @@ class Model:
                                impl=self.attn_impl)
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         return h + mlp(p["mlp"], hn, cfg.mlp)
+
+    def _ssm_block(self, p, h):
+        hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
+        return h + ssm_lib.mamba2_forward(p["ssm"], hn, self.cfg,
+                                          impl=self.attn_impl)
+
+    def _shared_attn_block(self, p, h, positions):
+        cfg = self.cfg
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+        h = h + attn.gqa_train(p["attn"], hn, positions, self.shared_cfg,
+                               impl=self.attn_impl)
+        if "mlp" in p:
+            hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+            h = h + mlp(p["mlp"], hn, cfg.mlp)
+        return h
 
     # --------------------------------------------------------------- embed
     def _scale_embeddings(self, h):
@@ -164,6 +212,24 @@ class Model:
     def backbone(self, params, h, positions):
         """Token embeddings -> final hidden states."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            body = maybe_remat(lambda hh, p: self._ssm_block(p, hh), cfg.remat)
+            for p in _unbind(params["blocks"]):
+                h = body(h, p)
+            return h
+        if cfg.family == "hybrid":
+            shared = params["shared_attn"]
+
+            def period(hh, p):
+                hh = self._shared_attn_block(shared, hh, positions)
+                for layer in _unbind(p):
+                    hh = self._ssm_block(layer, hh)
+                return hh
+
+            body = maybe_remat(period, cfg.remat)
+            for p in _unbind(params["mamba"]):
+                h = body(h, p)
+            return h
         if cfg.local_global_pattern:
             pat = cfg.local_global_pattern
 
@@ -217,6 +283,8 @@ class Model:
     def cache_specs(self, batch: int, max_len: int):
         """ParamSpec tree describing the decode cache."""
         cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            return self._ssm_cache_specs(batch, max_len)
         seq_ax = "seq" if cfg.seq_shard_attn else None
 
         def kv(n_layers_stack, T):
@@ -239,6 +307,39 @@ class Model:
             return out
         T = W if cfg.sliding_window else max_len
         return {"layers": kv((cfg.num_layers,), T)}
+
+    def _ssm_cache_specs(self, batch: int, max_len: int):
+        """The fp32 SSM state (..., B, nh, N, P) and the conv cache
+        (..., B, K-1, conv_dim) per mamba layer; for zamba2 also the shared
+        block's K/V cache per invocation."""
+        cfg = self.cfg
+        s = cfg.ssm
+        conv_dim = cfg.expand_dim + 2 * s.n_groups * s.d_state
+        if cfg.family == "ssm":
+            stack = (cfg.num_layers,)
+        else:
+            P = cfg.hybrid.shared_attn_period
+            stack = (cfg.num_layers // P, P)
+        ax = (None,) * len(stack)
+        out = {
+            "state": ParamSpec(stack + (batch, cfg.ssm_heads, s.d_state,
+                                        s.head_dim),
+                               ax + ("batch", "heads", None, None),
+                               init="zeros", dtype="float32"),
+            "conv": ParamSpec(stack + (batch, s.conv_kernel - 1, conv_dim),
+                              ax + ("batch", None, "model"), init="zeros",
+                              dtype=cfg.dtype),
+        }
+        if cfg.family == "hybrid":
+            sub = self.shared_cfg
+            seq_ax = "seq" if cfg.seq_shard_attn else None
+            shape = (stack[0], batch, max_len, sub.num_kv_heads, sub.head_dim)
+            axes = (None, "batch", seq_ax, "heads", None)
+            out["attn_k"] = ParamSpec(shape, axes, init="zeros",
+                                      dtype=cfg.dtype)
+            out["attn_v"] = ParamSpec(shape, axes, init="zeros",
+                                      dtype=cfg.dtype)
+        return out
 
     def init_cache(self, batch: int, max_len: int, device):
         # every cache leaf is zeros, so no generator is drawn from
@@ -301,7 +402,13 @@ class Model:
             h = embed(params["embed"], tokens[:, None])     # (B,1,d)
         h = self._scale_embeddings(h)
 
-        if cfg.local_global_pattern:
+        if cfg.family == "ssm":
+            for i in range(cfg.num_layers):
+                h = self._ssm_step(_index(params["blocks"], i), h,
+                                   cache["state"][i], cache["conv"][i])
+        elif cfg.family == "hybrid":
+            h = self._decode_hybrid(params, cache, h, pos)
+        elif cfg.local_global_pattern:
             h = self._decode_pattern(params, cache, h, pos)
         else:
             kind = "L" if cfg.sliding_window else "G"
@@ -312,6 +419,33 @@ class Model:
         h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
         logits = self._logits(params, h, head)[:, 0]
         return logits, cache
+
+    def _ssm_step(self, p, h, state, conv):
+        """One mamba layer's decode step; ``state`` and ``conv`` are updated
+        in place."""
+        hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
+        out, new_state, new_conv = ssm_lib.mamba2_decode_step(
+            p["ssm"], hn, state, conv, self.cfg)
+        state.copy_(new_state)
+        conv.copy_(new_conv)
+        return h + out
+
+    def _decode_hybrid(self, params, cache, h, pos: int):
+        cfg = self.cfg
+        shared = params["shared_attn"]
+        for n in range(params["mamba"]["ln"].shape[0]):
+            hn = rmsnorm(shared["ln1"], h, cfg.norm_eps)
+            a, _, _ = attn.gqa_decode(shared["attn"], hn, cache["attn_k"][n],
+                                      cache["attn_v"][n], pos, self.shared_cfg,
+                                      impl=self.attn_impl)
+            h = h + a
+            if "mlp" in shared:
+                hn = rmsnorm(shared["ln2"], h, cfg.norm_eps)
+                h = h + mlp(shared["mlp"], hn, cfg.mlp)
+            for i in range(cfg.hybrid.shared_attn_period):
+                h = self._ssm_step(_index(_index(params["mamba"], n), i), h,
+                                   cache["state"][n, i], cache["conv"][n, i])
+        return h
 
     def _decode_pattern(self, params, cache, h, pos: int):
         pat = self.cfg.local_global_pattern
