@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU and
-check them.
+"""Drive the PyTorch port's serving, training and image-feed paths on one
+NVIDIA GPU and check them.
 
 Run from the root of a checkout:   python3 chip_smoke.py
 
@@ -9,9 +9,9 @@ network.  Phases, one line of output each; any failure raises and the exit
 code is not 0:
 
 1. environment: the card's name and power limit, versions, TF32 off, the
-   decode-attention, flash-attention and ssd-scan kernels built from
-   ``src/repro_torch/kernels`` (one nvcc each, started together), with
-   ptxas's register and spill counts;
+   decode-attention, flash-attention, ssd-scan and fused-preprocess kernels
+   built from ``src/repro_torch/kernels`` (one nvcc each, started together),
+   with ptxas's register and spill counts;
 2. each kernel against its plain PyTorch version on the card, in fp32 and
    bf16.  Decode attention: the shapes of the JAX package's decode-attention
    sweep, full gemma-2b widths (B=4, H=8, Hkv=1, D=256) at the served cache
@@ -27,7 +27,18 @@ code is not 0:
    (nh=80, N=64) and a long sequence (B=1, S=32768), output and final
    state, against the per-token oracle up to S=1024 and ``ssd_chunked``
    beyond; and one gradient through its autograd function (wiring only, as
-   for flash);
+   for flash).  Fused preprocess (crop, cast, normalize): the JAX sweep's
+   crops, the image feed's batch (256 x 250 x 250 x 3, centre 224, ImageNet's
+   mean and std), one channel, and 3.1 GB whose byte index passes 2**31,
+   within 1e-6; and the inputs its wrapper must refuse;
+2b. image feed: a lake of 2048 random 250 x 250 x 3 images, queried on the
+   card with the torch TQL engine (a WHERE and its top-k form, each equal to
+   the numpy engine's), streamed through the loader and ``DeviceFeeder`` as
+   uint8 and crop-normalized by the kernel, one launch a batch of 256: the
+   top-k view, then all 2048 images; each output against the plain version,
+   the top-k batch against numpy on the host; the query times of both
+   engines, images/s through the feed, the device's idle share, and the
+   host-to-device ms of one batch as uint8 and as fp32;
 3. serve: ``Server.generate`` on full-width gemma-2b (18 layers, bf16, random
    weights from a seeded generator): 32 prompt + 32 new tokens for a batch
    of 4, launched through the decode kernel once per layer and token; then
@@ -64,8 +75,8 @@ code is not 0:
    ``scripts/ssm_bf16_drift.py`` for the JAX package's own bf16 drift);
 10. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
-   version's and one PyTorch call's (none computes SSD), at the main path's
-   shapes; a ``[bound]`` line for each timed shape with the bytes and
+   version's and one PyTorch call's (none computes SSD, none crops and
+   normalizes), at the main path's shapes; a ``[bound]`` line for each timed shape with the bytes and
    operations its bound comes from; and the script's total time.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -96,12 +107,18 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.core.dataset import Dataset  # noqa: E402
 from repro_torch.core.storage import MemoryProvider  # noqa: E402
-from repro_torch.data import build_token_dataset  # noqa: E402
+from repro_torch.core.tql import execute_query  # noqa: E402
+from repro_torch.core.tql.executor import VectorEval  # noqa: E402
+from repro_torch.core.views import DatasetView  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    DeviceFeeder, build_image_dataset, build_token_dataset)
 from repro_torch.distributed import HostFailure  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_ref, ops as da_ops)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, ops as fa_ops, ref_attention)
+from repro_torch.kernels.fused_preprocess import (  # noqa: E402
+    fused_preprocess, ops as fp_ops, ref_preprocess)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ops as ssd_ops, ref_ssd, ssd)
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
@@ -129,7 +146,8 @@ MAMBA2_JOB = TrainJob(arch="mamba2-1.3b", smoke=False, steps=8,
                       checkpoint_every=8, log_every=1)
 # each kernel's wrapper and its launch counter
 COUNTED = {"decode_attention": decode_attention,
-           "flash_attention": flash_attention, "ssd_scan": ssd}
+           "flash_attention": flash_attention, "ssd_scan": ssd,
+           "fused_preprocess": fused_preprocess}
 
 # the shapes of tests/test_kernels.py::test_decode_attention_sweep
 SWEEP = [
@@ -176,6 +194,22 @@ SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 256)
 SSD_ZAMBA2 = (2, 1024, 80, 64, 1, 64, 256)
 SSD_LONG = (1, 32768, 64, 64, 1, 128, 256)
 SSD_REF_MAX_S = 1024      # the per-token oracle's loop is cheap up to here
+PRE_ATOL = 1e-6                                      # tests/test_kernels.py
+SWEEP_MEAN, SWEEP_STD = (0.48, 0.45, 0.41), (0.23, 0.22, 0.23)   # its sweep
+# as published with torchvision's ImageNet models
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+# the image feed: the paper's random dataset (250 x 250 x 3), batches of 256
+# cropped to the centre 224
+FEED_IMAGES, FEED_BATCH, FEED_CROP = 2048, 256, (13, 13, 224, 224)
+FEED_WHERE = "SELECT * FROM dataset WHERE MEAN(images) > 127 AND labels != 1"
+FEED_TOPK = FEED_WHERE + " ORDER BY MEAN(images) DESC LIMIT 256"
+# (images, crop, mean, std): tests/test_kernels.py's fused-preprocess sweep,
+# the feed's batch, one channel, and 3.1 GB whose byte index passes 2**31
+PRE_CASES = [((3, 64, 64, 3), crop, SWEEP_MEAN, SWEEP_STD)
+             for crop in ((0, 0, 32, 32), (8, 16, 32, 32), (1, 1, 30, 30))] + [
+    ((FEED_BATCH, 250, 250, 3), FEED_CROP, IMAGENET_MEAN, IMAGENET_STD),
+    ((5, 97, 131, 1), (3, 7, 61, 89), (0.449,), (0.226,)),
+    ((16384, 250, 250, 3), (200, 200, 50, 50), IMAGENET_MEAN, IMAGENET_STD)]
 
 
 def _say(tag: str, **fields) -> None:
@@ -227,7 +261,7 @@ def environment():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"decode_attention": da_ops, "flash_attention": fa_ops,
-               "ssd_scan": ssd_ops}
+               "ssd_scan": ssd_ops, "fused_preprocess": fp_ops}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:   # one nvcc each, together
         for built in [pool.submit(ops.build) for ops in kernels.values()]:
@@ -413,6 +447,179 @@ def ssd_vs_plain():
     _say("ssd_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
          grad_max_abs_err=grad_err, errors=errors)
     return errors
+
+
+
+def _images(shape, seed=0):
+    """Random uint8 images made on the card from a seeded generator."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                         generator=gen)
+
+
+def preprocess_vs_plain():
+    """The crop-normalize kernel against its plain version on the card, at
+    ``PRE_ATOL``: the JAX sweep's crops, the image feed's batch, one channel,
+    and a batch of 3.1 GB whose flat byte index passes 2**31 (its window
+    reaches the last byte).  Then what the wrapper must refuse on the card."""
+    errors = {}
+    for shape, crop, mean, std in PRE_CASES:
+        x = _images(shape)
+        got = fused_preprocess(x, crop, mean, std)
+        torch.cuda.synchronize()
+        want = ref_preprocess(x, crop, mean, std)
+        name = f"{tuple(shape)} crop{tuple(crop)}"
+        errors[name] = (got - want).abs().max().item()
+        if not (got.dtype == torch.float32 and got.shape == want.shape
+                and got.is_contiguous() and errors[name] <= PRE_ATOL):
+            raise AssertionError(f"fused_preprocess disagrees with plain at "
+                                 f"{name}: max|err| {errors[name]}")
+        del x, got, want
+        torch.cuda.empty_cache()
+    x = _images((2, 64, 64, 3))
+    refused = 0
+    for bad in (x[:, :, :, :2], x.float(), x.permute(0, 2, 1, 3)):
+        try:
+            fused_preprocess(bad, (0, 0, 8, 8), (0.5,) * bad.shape[3],
+                             (0.25,) * bad.shape[3])
+        except ValueError:
+            refused += 1
+    if refused != 3:
+        raise AssertionError(f"the wrapper took {3 - refused} of 3 bad inputs")
+    _say("preprocess_vs_plain", cases=len(errors),
+         max_abs_err=max(errors.values()), atol=PRE_ATOL, errors=errors)
+    return errors
+
+
+# ---------------------------------------------------------- image feed
+def _device_busy_ms(prof) -> float:
+    """Device time of every kernel and copy a profile recorded."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+
+
+def _h2d_ms(host: np.ndarray, copies: int = 5) -> float:
+    """ms of one pinned host-to-device copy of ``host``."""
+    pinned = torch.from_numpy(host).pin_memory()
+    pinned.to("cuda", non_blocking=True)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(copies):
+        pinned.to("cuda", non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / copies
+
+
+def _feed(view, batches: list):
+    """The image path's tail: the view's loader, ``DeviceFeeder`` onto the
+    card, ``fused_preprocess``; appends (uint8 batch, output) to
+    ``batches``."""
+    loader = view.dataloader(tensors=["images", "labels"],
+                             batch_size=FEED_BATCH, shuffle=False,
+                             drop_last=True, num_workers=8)
+    for batch in DeviceFeeder(iter(loader), "cuda"):
+        images = batch["images"]
+        if images.dtype != torch.uint8 or images.device.type != "cuda":
+            raise AssertionError(f"fed {images.dtype} on {images.device}")
+        batches.append((images, batch["labels"],
+                        fused_preprocess(images, FEED_CROP, IMAGENET_MEAN,
+                                         IMAGENET_STD)))
+
+
+def image_feed(card: str):
+    """The query-to-device image path at the size users run: a lake of 2048
+    random images of 250 x 250 x 3 (``build_image_dataset``, quant8), queried
+    with the torch engine on the card (a WHERE, then its top-k form), each
+    view equal to the numpy engine's; the top-k view and then the whole lake
+    streamed through the loader and ``DeviceFeeder`` as uint8 and
+    crop-normalized on the card, one kernel launch a batch.  Each output
+    against the plain version on the card; the top-k batch also against a
+    crop and normalize in numpy on the host of the rows the numpy engine
+    chose."""
+    t0 = time.perf_counter()
+    ds = build_image_dataset(Dataset(MemoryProvider()),
+                             num_images=FEED_IMAGES)
+    build_s = time.perf_counter() - t0
+    evals = []
+    inner = VectorEval.eval
+
+    def counted(self, node):          # which device each evaluation ran on
+        evals.append(self.xp.device.type if self.engine == "torch"
+                     else self.engine)
+        return inner(self, node)
+    VectorEval.eval = counted
+    query_ms, views = {}, {}
+    try:
+        _reset_counts()
+        for name, q in (("where", FEED_WHERE), ("topk", FEED_TOPK)):
+            execute_query(ds, q, engine="numpy")          # warm the caches
+            for engine in ("numpy", "torch"):
+                del evals[:]
+                t0 = time.perf_counter()
+                views[name, engine] = execute_query(ds, q, engine=engine)
+                query_ms[f"{name}_{engine}"] = (time.perf_counter() - t0) * 1e3
+                if engine == "torch" and (not evals or set(evals) != {"cuda"}):
+                    raise AssertionError(f"{name}: evaluations on {evals}")
+            want = views[name, "numpy"].indices
+            if not np.array_equal(views[name, "torch"].indices, want):
+                raise AssertionError(f"{name}: the torch engine selects other "
+                                     f"rows than the numpy engine")
+    finally:
+        VectorEval.eval = inner
+    topk = views["topk", "torch"]
+    if len(topk) != FEED_BATCH:
+        raise AssertionError(f"top-k view of {len(topk)} rows")
+    top_batches, all_batches = [], []
+    _feed(topk, top_batches)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _feed(DatasetView.full(ds), all_batches)
+        torch.cuda.synchronize()
+        feed_s = time.perf_counter() - t0
+    counts = _counts()
+    _check_counts(counts, {"fused_preprocess": 1 + FEED_IMAGES // FEED_BATCH},
+                  "image feed")
+    busy_ms = _device_busy_ms(prof)
+
+    errors = []
+    for images, _, out in top_batches + all_batches:
+        want = ref_preprocess(images, FEED_CROP, IMAGENET_MEAN, IMAGENET_STD)
+        errors.append((out - want).abs().max().item())
+    if len(all_batches) != FEED_IMAGES // FEED_BATCH or \
+            max(errors) > PRE_ATOL:
+        raise AssertionError(f"{len(all_batches)} batches, errors {errors}")
+    rows = views["topk", "numpy"].indices
+    y0, x0, h, w = FEED_CROP
+    host = np.stack([np.asarray(ds.images[int(i)]) for i in rows])
+    host_out = ((host[:, y0:y0 + h, x0:x0 + w].astype(np.float32)
+                 / np.float32(255.0) - np.float32(IMAGENET_MEAN))
+                / np.float32(IMAGENET_STD))
+    _, labels, out = top_batches[0]
+    host_err = float(np.abs(out.cpu().numpy() - host_out).max())
+    if host_err > PRE_ATOL or not np.array_equal(
+            labels.cpu().numpy(), np.asarray(ds.labels.numpy())[rows]):
+        raise AssertionError(f"the top-k batch differs from the host's crop "
+                             f"of the numpy engine's rows: {host_err}")
+    h2d = {"uint8_ms": _h2d_ms(host),
+           "float32_ms": _h2d_ms(host.astype(np.float32)),
+           "batch": list(host.shape)}
+    _say("image_feed", card=card, images=FEED_IMAGES, size=[250, 250, 3],
+         build_s=build_s,
+         rows={f"{n}_{e}": len(v) for (n, e), v in views.items()},
+         query_ms=query_ms, topk_plan=topk.topk_plan, launches=counts,
+         max_abs_err=max(errors), host_max_abs_err=host_err)
+    _say("image_feed_rate", card=card, batch=FEED_BATCH, crop=list(FEED_CROP),
+         feed_s=feed_s, images_per_s=FEED_IMAGES / feed_s,
+         device_busy_ms=busy_ms, idle_share=1 - busy_ms / (feed_s * 1e3),
+         h2d=h2d)
+    return counts["fused_preprocess"], max(errors + [host_err])
 
 
 # ----------------------------------------------------------------- phase 3
@@ -944,12 +1151,38 @@ def ssd_timings(shape, card: str):
     return out
 
 
+def preprocess_timings(card: str):
+    """The crop-normalize kernel at the image feed's batch: its bound is the
+    window's bytes read once and the fp32 output written once, over the
+    memory rate, against three fp32 operations an element.  The batch (48
+    MB) may stay in the 50 MB L2 cache between calls."""
+    x = _images((FEED_BATCH, 250, 250, 3), seed=5)
+    _, _, h, w = FEED_CROP
+    n = FEED_BATCH * h * w * 3
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")   # made outside the
+    std = torch.tensor(IMAGENET_STD, device="cuda")     # graph's capture
+    shape = f"B={FEED_BATCH} 250x250x3 uint8 crop={FEED_CROP} -> fp32"
+    return {
+        "shape": shape,
+        "ms": device_ms(lambda: fused_preprocess(x, FEED_CROP, IMAGENET_MEAN,
+                                                 IMAGENET_STD)),
+        "plain_ms": device_ms(lambda: ref_preprocess(x, FEED_CROP, mean, std)),
+        **_bound("fused_preprocess", shape, n * (1 + 4), 3 * n,
+                 FP32_OPS_PER_S, card),
+        "library_ms": None,
+        "card": card,
+    }
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = environment()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
     ssd_errors = ssd_vs_plain()
+    pre_errors = preprocess_vs_plain()
+    feed_launches, feed_err = image_feed(card)
+    torch.cuda.empty_cache()
     srv, launches = serve(card, "gemma-2b")
     trace(srv, card)
     del srv
@@ -1015,8 +1248,22 @@ def main() -> None:
         "training_shape": ssd_train,
         "long_shape": ssd_long,
     }
+    pre = preprocess_timings(card)
+    pre_entry = {
+        "name": "fused_preprocess",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_preprocess/csrc/fused_preprocess.cu",
+        "replaces": "src/repro/kernels/fused_preprocess/fused_preprocess.py:31",
+        "launches": feed_launches,
+        "max_abs_err": max(max(pre_errors.values()), feed_err),
+        **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        "library_note": "no single PyTorch call crops, casts and normalizes",
+        "feed_shape": pre,
+    }
     _say("done", script_s=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [entry, flash_entry, ssd_entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, flash_entry, ssd_entry, pre_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

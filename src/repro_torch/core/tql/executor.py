@@ -21,8 +21,9 @@ Two evaluation engines per group:
 
 * **vectorized** — when every referenced tensor is fixed-shape, the
   group's columns are stacked and the whole expression evaluates as array
-  math.  With ``engine="jax"`` the expression graph is jitted through XLA —
-  the paper's "execution of the query can be delegated to external tensor
+  math.  With ``engine="torch"`` the expression graph runs as torch
+  operations on a device, the card by default (:mod:`repro_torch.tql_engine`)
+  — the paper's "execution of the query can be delegated to external tensor
   computation frameworks" (§4.3).
 * **row-wise** — always-correct fallback (ragged tensors, UDFs without a
   batched form, CONTAINS over text, ...).
@@ -183,18 +184,19 @@ _APPLY = {
 # ---------------------------------------------------------------- vectorized
 class VectorEval:
     """Batched evaluation over stacked columns; raises Unvectorizable to
-    signal fallback.  ``xp`` is numpy or jax.numpy."""
+    signal fallback.  ``xp`` is numpy or a torch namespace on ``device``."""
 
-    def __init__(self, view: DatasetView, seed: int, engine: str = "numpy") -> None:
+    def __init__(self, view: DatasetView, seed: int, engine: str = "numpy",
+                 device: Any = None) -> None:
         self.view = view
         self.engine = engine
         self.seed = seed
         self._cols: Dict[str, np.ndarray] = {}
-        if engine == "jax":
-            raise NotImplementedError(
-                "the jax TQL engine is not ported; see ROADMAP Queue 1 item "
-                "15 (TQL tensor engine)")
-        self.xp = np
+        if engine == "torch":
+            from repro_torch.tql_engine import TorchNamespace  # deferred
+            self.xp = TorchNamespace(device)
+        else:
+            self.xp = np
 
     def column(self, name: str) -> np.ndarray:
         if name not in self._cols:
@@ -219,6 +221,10 @@ class VectorEval:
     def eval(self, node: Node) -> np.ndarray:
         cols = {r.name: self.column(r.name) for r in node.walk()
                 if isinstance(r, TensorRef)}
+        if self.engine == "torch":
+            xp = self.xp
+            return xp.to_numpy(self._eval(
+                node, {k: xp.asarray(v) for k, v in cols.items()}, xp))
         return np.asarray(self._eval(node, cols, np))
 
     def _eval(self, node: Node, cols: Dict[str, Any], xp) -> Any:
@@ -467,9 +473,18 @@ class Executor:
                  stream: Optional[bool] = None,
                  shards: Optional[int] = None,
                  tenant: Optional[str] = None,
-                 scan_plan_hint: Optional[ScanPlan] = None) -> None:
+                 scan_plan_hint: Optional[ScanPlan] = None,
+                 device: Any = None) -> None:
         self.query = query
+        if engine == "jax":
+            raise ValueError("engine='jax' is the JAX package's; the port's "
+                             "tensor engine is engine='torch'")
         self.engine = engine
+        #: where engine="torch" evaluates: ``device``, else the CUDA device
+        self.device = None
+        if engine == "torch":
+            from repro_torch.tql_engine import engine_device  # deferred
+            self.device = engine_device(device)
         self.use_stats = use_stats
         #: WHERE execution mode: None = auto (stream when the view spans
         #: multiple chunk groups), False = whole-view column stack (the
@@ -500,10 +515,11 @@ class Executor:
 
     # evaluate an expression for every row of `view`, preferring vector path
     def eval_all(self, view: DatasetView, node: Node) -> np.ndarray:
-        if self.engine in ("auto", "numpy", "jax"):
+        if self.engine in ("auto", "numpy", "torch"):
             try:
                 ve = VectorEval(view, self.seed,
-                                "jax" if self.engine == "jax" else "numpy")
+                                "torch" if self.engine == "torch" else "numpy",
+                                self.device)
                 out = ve.eval(node)
                 if out.ndim == 0:
                     out = np.broadcast_to(out, (len(view),))
@@ -512,7 +528,7 @@ class Executor:
             except Unvectorizable:
                 pass
             except Exception:
-                if self.engine == "jax":
+                if self.engine == "torch":
                     raise
         ctx = RowContext(view, self)
         vals = [eval_row(node, ctx.bind(i)) for i in range(len(view))]
@@ -1088,7 +1104,8 @@ def execute_query(source: Union["Dataset", DatasetView], text: str,
                   engine: str = "auto", use_stats: bool = True,
                   stream: Optional[bool] = None,
                   shards: Optional[int] = None,
-                  tenant: Optional[str] = None) -> DatasetView:
+                  tenant: Optional[str] = None,
+                  device: Any = None) -> DatasetView:
     q = parse(text)
     if isinstance(source, DatasetView):
         if q.version:
@@ -1103,4 +1120,4 @@ def execute_query(source: Union["Dataset", DatasetView], text: str,
     if missing:
         raise KeyError(f"query references unknown tensors: {missing}")
     return Executor(q, engine=engine, use_stats=use_stats, stream=stream,
-                    shards=shards, tenant=tenant).run(base)
+                    shards=shards, tenant=tenant, device=device).run(base)

@@ -37,13 +37,14 @@ def get_function(name: str) -> FunctionSpec:
             from None
 
 
-def _reduce_all(np_reduce, empty):
+def _reduce_all(np_reduce, empty, method):
     """Whole-sample reduction with an explicit empty-input identity.
 
     SUM of nothing is 0; MEAN/STD/MIN/MAX of nothing have no value and
     yield NaN (np.min/np.max raise on empty input, so the identity must
     be supplied rather than delegated).  The batched path returns the
-    same identity per empty row so both execution paths agree.
+    same identity per empty row so both execution paths agree.  The
+    batched form reduces with ``xp``'s function of the name ``method``.
     """
     def row(x):
         a = np.asarray(x)
@@ -55,7 +56,7 @@ def _reduce_all(np_reduce, empty):
             return a
         if 0 in a.shape[1:]:  # every row's reduced slice is empty
             return xp.full((a.shape[0],), empty, dtype="float64")
-        return np_reduce(a, axis=tuple(range(1, a.ndim)))
+        return getattr(xp, method)(a, axis=tuple(range(1, a.ndim)))
     return row, batched
 
 
@@ -106,7 +107,7 @@ def _register_defaults() -> None:
     for name, red, empty in (("MEAN", np.mean, np.nan), ("SUM", np.sum, 0.0),
                              ("MAX", np.max, np.nan), ("MIN", np.min, np.nan),
                              ("STD", np.std, np.nan)):
-        row, batched = _reduce_all(red, empty)
+        row, batched = _reduce_all(red, empty, name.lower())
         register_function(name, row, batched)
     register_function("ABS", lambda x: np.abs(np.asarray(x)),
                       lambda x, xp=np: xp.abs(x))
@@ -123,7 +124,7 @@ def _register_defaults() -> None:
     register_function(
         "L2_NORM", lambda x: float(np.linalg.norm(np.asarray(x, dtype=np.float64))),
         lambda x, xp=np: xp.sqrt(xp.sum(
-            (x.astype("float32") if hasattr(x, "astype") else x) ** 2,
+            xp.asarray(x, dtype="float32") ** 2,
             axis=tuple(range(1, x.ndim)))))
     register_function("SHAPE", lambda x: np.asarray(np.asarray(x).shape, dtype=np.int64))
     register_function("IOU", iou)
@@ -132,7 +133,7 @@ def _register_defaults() -> None:
     register_function("LEN", lambda x: int(np.asarray(x).shape[0])
                       if np.asarray(x).ndim else 1)
     register_function("CAST_FLOAT", lambda x: np.asarray(x, dtype=np.float32),
-                      lambda x, xp=np: x.astype("float32"))
+                      lambda x, xp=np: xp.asarray(x, dtype="float32"))
     # RANDOM is handled specially by the executor (deterministic per query).
 
 

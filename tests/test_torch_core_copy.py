@@ -4,8 +4,11 @@ Every file of ``src/repro_torch/core/`` equals its counterpart in
 ``src/repro/core/`` line for line, once import lines naming ``repro`` are
 read as naming ``repro_torch`` and with change tags in the JAX package's
 docstrings (an upper-case word, a dash and a number, in parentheses) left out
-as the copy leaves them out, except for the hunks listed here: the TQL engine
-that jits through jax, which the port leaves out (ROADMAP Queue 1 item 15).
+as the copy leaves them out, except for the hunks listed here: the TQL tensor
+engine, which jits through jax in the JAX package and runs as torch operations
+on a device in the port (``engine="torch"``, ``repro_torch/tql_engine.py``),
+and the batched TQL functions, which reduce and cast through the engine's
+array namespace so that they take torch tensors as well as numpy arrays.
 A change to either copy that is not made to the other fails here.
 """
 
@@ -22,22 +25,71 @@ PORT_CORE = ROOT / "src" / "repro_torch" / "core"
 # file -> (lines only the JAX package has, lines only the port has)
 EXPECTED = {
     "tql/executor.py": (
-        ["            import jax.numpy as jnp  # deferred; numpy engine has no jax dep",
-         "            self.xp = jnp",
-         "        else:",
-         "            self.xp = np",
-         "        if self.engine == \"jax\":",
-         "            import jax",
-         "",
-         "            @jax.jit",
-         "            def run(cs):",
-         "                return self._eval(node, cs, self.xp)",
-         "",
-         "            return np.asarray(run({k: self.xp.asarray(v) for k, v in cols.items()}))"],
-        ["            raise NotImplementedError(",
-         "                \"the jax TQL engine is not ported; see ROADMAP Queue 1 item \"",
-         "                \"15 (TQL tensor engine)\")",
-         "        self.xp = np"]),
+        ['  math.  With ``engine="jax"`` the expression graph is jitted through XLA —',
+         '  the paper\'s "execution of the query can be delegated to external tensor',
+         '    signal fallback.  ``xp`` is numpy or jax.numpy."""',
+         '    def __init__(self, view: DatasetView, seed: int, engine: str = "numpy") -> None:',
+         '        if engine == "jax":',
+         '            import jax.numpy as jnp  # deferred; numpy engine has no jax dep',
+         '            self.xp = jnp',
+         '        if self.engine == "jax":',
+         '            import jax',
+         '',
+         '            @jax.jit',
+         '            def run(cs):',
+         '                return self._eval(node, cs, self.xp)',
+         '',
+         '            return np.asarray(run({k: self.xp.asarray(v) for k, v in cols.items()}))',
+         '                 scan_plan_hint: Optional[ScanPlan] = None) -> None:',
+         '        if self.engine in ("auto", "numpy", "jax"):',
+         '                                "jax" if self.engine == "jax" else "numpy")',
+         '                if self.engine == "jax":',
+         '                  tenant: Optional[str] = None) -> DatasetView:',
+         '                    shards=shards, tenant=tenant).run(base)'],
+        ['  math.  With ``engine="torch"`` the expression graph runs as torch',
+         '  operations on a device, the card by default (:mod:`repro_torch.tql_engine`)',
+         '  — the paper\'s "execution of the query can be delegated to external tensor',
+         '    signal fallback.  ``xp`` is numpy or a torch namespace on ``device``."""',
+         '    def __init__(self, view: DatasetView, seed: int, engine: str = "numpy",',
+         '                 device: Any = None) -> None:',
+         '        if engine == "torch":',
+         '            from repro_torch.tql_engine import TorchNamespace  # deferred',
+         '            self.xp = TorchNamespace(device)',
+         '        if self.engine == "torch":',
+         '            xp = self.xp',
+         '            return xp.to_numpy(self._eval(',
+         '                node, {k: xp.asarray(v) for k, v in cols.items()}, xp))',
+         '                 scan_plan_hint: Optional[ScanPlan] = None,',
+         '                 device: Any = None) -> None:',
+         '        if engine == "jax":',
+         '            raise ValueError("engine=\'jax\' is the JAX package\'s; the port\'s "',
+         '                             "tensor engine is engine=\'torch\'")',
+         '        #: where engine="torch" evaluates: ``device``, else the CUDA device',
+         '        self.device = None',
+         '        if engine == "torch":',
+         '            from repro_torch.tql_engine import engine_device  # deferred',
+         '            self.device = engine_device(device)',
+         '        if self.engine in ("auto", "numpy", "torch"):',
+         '                                "torch" if self.engine == "torch" else "numpy",',
+         '                                self.device)',
+         '                if self.engine == "torch":',
+         '                  tenant: Optional[str] = None,',
+         '                  device: Any = None) -> DatasetView:',
+         '                    shards=shards, tenant=tenant, device=device).run(base)']),
+    "tql/functions.py": (
+        ['def _reduce_all(np_reduce, empty):',
+         '    same identity per empty row so both execution paths agree.',
+         '        return np_reduce(a, axis=tuple(range(1, a.ndim)))',
+         '        row, batched = _reduce_all(red, empty)',
+         '            (x.astype("float32") if hasattr(x, "astype") else x) ** 2,',
+         '                      lambda x, xp=np: x.astype("float32"))'],
+        ['def _reduce_all(np_reduce, empty, method):',
+         '    same identity per empty row so both execution paths agree.  The',
+         "    batched form reduces with ``xp``'s function of the name ``method``.",
+         '        return getattr(xp, method)(a, axis=tuple(range(1, a.ndim)))',
+         '        row, batched = _reduce_all(red, empty, name.lower())',
+         '            xp.asarray(x, dtype="float32") ** 2,',
+         '                      lambda x, xp=np: xp.asarray(x, dtype="float32"))']),
 }
 
 _IMPORT = re.compile(r"^(\s*)(from|import)\s+repro(\.|\s)")
