@@ -20,7 +20,9 @@ code is not 0:
    of head grouping and D.  Flash attention: the JAX flash sweep's shapes,
    gemma-2b's training shape (B=4, S=1024, H=8, Hkv=1, D=256), ragged S,
    starcoder2's and gemma3's sliding windows, D of 32, 40, 96 and 128, G of
-   1, 2 and 8; and one gradient through its autograd function against plain
+   1, 2 and 8, zamba2's shared block (D=80); the profiler's kernel names show
+   each bf16 case on the tensor-core kernel and each fp32 case on the
+   CUDA-core one; and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
    recompute).  SSD scan: the JAX ssd sweep's shapes, mamba2-1.3b's training
    shape (B=4, S=2048, nh=64, P=64, N=128, 8 chunks of 256), zamba2-2.7b's
@@ -65,7 +67,9 @@ code is not 0:
 8. zamba2: the loss and gradients of one batch of 2 x 1024 tokens on
    full-width zamba2-2.7b (54 mamba layers, the shared attention block 9
    times, bf16, remat "full"), through the ssd and flash kernels (2 x 54 and
-   2 x 9 launches) and through the plain impls, within 2e-2;
+   2 x 9 launches) and through the plain impls, within 2e-2; each route
+   timed four times, the first route alternating, beside the ssd and flash
+   kernels' and their plain versions' device ms at this pass's shapes;
 9. serve ssm: phase 3's ``serve`` on full-width mamba2-1.3b and
    zamba2-2.7b: zamba2 through the decode kernel 9 times a token (head dim
    80), its decode logits through the kernel and plain attention within
@@ -76,8 +80,10 @@ code is not 0:
 10. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
    version's and one PyTorch call's (none computes SSD, none crops and
-   normalizes), at the main path's shapes; a ``[bound]`` line for each timed shape with the bytes and
-   operations its bound comes from; and the script's total time.
+   normalizes), at the main path's shapes (flash also at zamba2's shared
+   block, B=2 S=1024 H=Hkv=32 D=80, from phase 8); a
+   ``[bound]`` line for each timed shape with the bytes and operations its
+   bound comes from; and the script's total time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -183,6 +189,15 @@ FLASH_GEMMA = [(4, 1024, 8, 1, 256, 0), (1, 1000, 8, 1, 256, 0),
 FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 500, 32, 32, 96, 0), (1, 300, 4, 1, 40, 0),
                (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
+
+# the flash kernel each input dtype runs, as the profiler names it
+FLASH_ROUTES = {torch.bfloat16: "flash_fwd_mma_kernel",
+                torch.float32: "flash_fwd_kernel"}
+# zamba2-2.7b's shared attention block at its train phase's shape
+FLASH_ZAMBA2 = dict(B=2, S=1024, H=32, Hkv=32, D=80)
+# the [zamba2] phase's rounds: which route goes first alternates, so that
+# neither is always the one that runs on a cold allocator
+ZAMBA2_ORDER = [("kernel", "torch"), ("torch", "kernel")] * 2
 
 # the ssd scan (B, S, nh, P, G, N, Q): the shapes of
 # tests/test_kernels.py::test_ssd_sweep (two chunks and more, one chunk, G=4)
@@ -330,19 +345,25 @@ def flash_vs_plain():
     wiring; the train phase's loss and gradient norm through the kernel and
     through plain attention are where the kernel's output reaches the
     gradients."""
-    errors = {}
+    errors, routes = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        route, ran = FLASH_ROUTES[dtype], set()
         for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER:
             q, k, v = _flash_inputs(B, S, H, Hkv, D, dtype)
-            got = flash_attention(q, k, v, window=window)
-            torch.cuda.synchronize()
+            got, names = _flash_kernels(
+                lambda: flash_attention(q, k, v, window=window))
+            name = f"{str(dtype)[6:]} B{B} S{S} H{H} Hkv{Hkv} D{D} w{window}"
+            # bf16 on the tensor cores, fp32 on the CUDA cores
+            if not names or not all(route in n for n in names):
+                raise AssertionError(f"flash at {name} ran {names}, want "
+                                     f"{route}")
+            ran.update(names)
             want = ref_attention(q, k, v, window=window).float()
             want32 = ref_attention(q.float(), k.float(), v.float(),
                                    window=window)
             diff = (got.float() - want).abs()
             diff32 = (got.float() - want32).abs()
-            name = f"{str(dtype)[6:]} B{B} S{S} H{H} Hkv{Hkv} D{D} w{window}"
             errors[name] = diff.max().item()
             ok = (bool((diff <= TOL[dtype] + TOL[dtype] * want.abs()).all())
                   and bool((diff32 <= TOL[torch.float32]
@@ -353,6 +374,7 @@ def flash_vs_plain():
                     f"flash kernel disagrees with plain at {name}: max|err| "
                     f"{errors[name]}, against fp32 {diff32.max().item()}")
             del q, k, v, got, want, want32, diff, diff32
+        routes[str(dtype)[6:]] = sorted(ran)
     q, k, v = (t.requires_grad_() for t in
                _flash_inputs(4, 1024, 8, 1, 256, torch.bfloat16, seed=1))
     g = torch.randn(q.shape, device="cuda", dtype=q.dtype,
@@ -367,8 +389,23 @@ def flash_vs_plain():
                for a, b in zip(got, want)):
         raise AssertionError(f"flash gradient differs from plain: {grad_err}")
     _say("flash_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
-         grad_max_abs_err=grad_err, errors=errors)
+         grad_max_abs_err=grad_err, routes=routes, errors=errors)
     return errors
+
+
+def _flash_kernels(fn, tries: int = 3):
+    """``fn()`` and the names of the flash kernels it launched, from
+    ``torch.profiler``.  The profiler may drop a launch's record (one of 13
+    in one run), so a call in which it saw none is made again."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() if "flash_fwd" in e.key]
+        if names:
+            break
+    return out, names
 
 
 def _ssd_inputs(B, S, nh, P, G, N, dtype, seed=0):
@@ -1019,7 +1056,10 @@ def trace(srv, card: str):
 def zamba2(card: str):
     """Loss and gradients of one batch on full-width zamba2-2.7b through the
     kernels and through the plain impls; no optimizer (its state would be a
-    27 GB checkpoint)."""
+    27 GB checkpoint).  Each route is timed in every round of
+    ``ZAMBA2_ORDER``, the first route alternating, and reported as its
+    readings, their median and spread, beside the ssd and flash kernels'
+    device ms and their plain versions' at the shapes this pass gives them."""
     cfg = get_arch("zamba2-2.7b")
     B, S = 2, 1024
     torch.cuda.reset_peak_memory_stats()
@@ -1028,15 +1068,17 @@ def zamba2(card: str):
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to("cuda")
     batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
-    out, secs, counts = {}, {}, {}
-    for impl in ("kernel", "torch"):
-        _reset_counts()
-        t0 = time.perf_counter()
-        out[impl] = loss_and_grad_norm(build_model(cfg, attn_impl=impl),
-                                       params, batch)
-        torch.cuda.synchronize()
-        secs[impl] = time.perf_counter() - t0
-        counts[impl] = _counts()
+    out, secs, counts = {}, {"kernel": [], "torch": []}, {}
+    for order in ZAMBA2_ORDER:
+        for impl in order:
+            _reset_counts()
+            t0 = time.perf_counter()
+            got = loss_and_grad_norm(build_model(cfg, attn_impl=impl),
+                                     params, batch)
+            torch.cuda.synchronize()
+            secs[impl].append(time.perf_counter() - t0)
+            out.setdefault(impl, got)
+            counts.setdefault(impl, _counts())
     _check_counts(counts["kernel"], train_launches(cfg, 1), "zamba2")
     _check_counts(counts["torch"], {}, "zamba2 plain")
     rel = {name: abs(out["kernel"][i] - out["torch"][i]) / abs(out["torch"][i])
@@ -1044,11 +1086,18 @@ def zamba2(card: str):
     if not (max(rel.values()) < TRAIN_RTOL
             and all(math.isfinite(v) for v in out["kernel"])):
         raise AssertionError(f"zamba2 kernel vs torch impls: {out}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, batch
+    flash = flash_timings(**FLASH_ZAMBA2, card=card)
     _say("zamba2", card=card, arch=cfg.name, layers=cfg.num_layers,
          d_model=cfg.d_model, dtype=cfg.dtype, remat=cfg.remat, batch=B,
          seq_len=S, launches=counts["kernel"], loss_and_grad_norm=out,
          kernel_vs_torch_rel=rel, seconds=secs,
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+         median_s={k: statistics.median(v) for k, v in secs.items()},
+         spread_s={k: max(v) - min(v) for k, v in secs.items()},
+         ssd_at_its_shape=ssd_timings(SSD_ZAMBA2, card),
+         flash_at_its_shape=flash, peak_memory_gb=peak_gb)
+    return flash
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1099,9 +1148,9 @@ def timings(T: int, pos: int, card: str):
     }
 
 
-def flash_timings(B: int, S: int, card: str):
-    """The flash kernel at gemma-2b's widths, causal, bf16."""
-    H, Hkv, D = GEMMA["H"], GEMMA["Hkv"], GEMMA["D"]
+def flash_timings(B: int, S: int, card: str, H: int = GEMMA["H"],
+                  Hkv: int = GEMMA["Hkv"], D: int = GEMMA["D"]):
+    """The flash kernel, causal, bf16; at gemma-2b's widths by default."""
     q, k, v = _flash_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=5)
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
     ops = 4 * B * H * D * pairs                 # QK^T and PV, 2 each a pair
@@ -1200,7 +1249,7 @@ def main() -> None:
     trace_train(trainer, state, batch, card, "trace_train_mamba2")
     del trainer, state, batch, lake
     torch.cuda.empty_cache()
-    zamba2(card)
+    zamba2_train = zamba2(card)
     torch.cuda.empty_cache()
     for arch in ("mamba2-1.3b", "zamba2-2.7b"):
         serve(card, arch)
@@ -1220,6 +1269,7 @@ def main() -> None:
                                     "library_ms")},
         "training_shape": training,
         "long_shape": long_train,
+        "zamba2_shape": zamba2_train,
     }
     entry = {
         "name": "decode_attention",

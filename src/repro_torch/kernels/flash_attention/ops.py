@@ -2,7 +2,8 @@
 
 ``csrc/flash_attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, and loaded with
-``ctypes`` (``kernels/_build.py``).
+``ctypes`` (``kernels/_build.py``).  bf16 inputs run on the tensor cores
+(``mma.sync``), fp32 inputs on the CUDA cores.
 
 ``flash_attention`` is a ``torch.autograd.Function``, as the JAX package's is
 a ``custom_vjp``: its forward is the kernel on a CUDA tensor and the plain
@@ -27,8 +28,20 @@ from .ref import ref_attention
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_D = 256                 # mirrors kMaxD in the CUDA source
 MAX_GRID_YZ = 65535         # H and B are the grid's y and z
+# the bf16 kernel's tiles by head dim: (DP, BK, WARPS)
+MMA_TILES = ((64, 64, 4), (80, 32, 4), (128, 64, 4), (256, 32, 4))
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def mma_tiles(D: int) -> tuple:
+    """(DP, BK, BQ) of the bf16 kernel at head dim ``D``: the width D is
+    padded to, the keys of a K/V tile and the query rows of a block (16 a
+    warp).  Mirrors ``dispatch<__nv_bfloat16>`` in the CUDA source."""
+    if D < 1 or D > MAX_D:
+        raise ValueError(f"head dim {D} is not in 1..{MAX_D}")
+    DP, BK, warps = next(tile for tile in MMA_TILES if D <= tile[0])
+    return DP, BK, 16 * warps
 
 
 def library_path() -> Path:
