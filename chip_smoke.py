@@ -15,9 +15,12 @@ code is not 0:
 2. each kernel against its plain PyTorch version on the card, in fp32 and
    bf16.  Decode attention: the shapes of the JAX package's decode-attention
    sweep, full gemma-2b widths (B=4, H=8, Hkv=1, D=256) at the served cache
-   (T=64, the positions where the split plan changes) and at T=4096
-   including a ring buffer past T, and other configs' widths and edge cases
-   of head grouping and D.  Flash attention: the JAX flash sweep's shapes,
+   (T=64, every position, so every one where the split plan changes), at
+   T=4096 and at the timed T=32768, each with a ring buffer past T, and
+   other configs' widths and edge cases of head grouping and D; the
+   profiler's kernel names show each bf16 case on the tensor-core kernel,
+   each fp32 case on the CUDA-core one, and a one-split case in one launch.
+   Flash attention: the JAX flash sweep's shapes,
    gemma-2b's training shape (B=4, S=1024, H=8, Hkv=1, D=256), ragged S,
    starcoder2's and gemma3's sliding windows, D of 32, 40, 96 and 128, G of
    1, 2 and 8, zamba2's shared block (D=80); the profiler's kernel names show
@@ -80,7 +83,9 @@ code is not 0:
 10. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
    version's and one PyTorch call's (none computes SSD, none crops and
-   normalizes), at the main path's shapes (flash also at zamba2's shared
+   normalizes), at the main path's shapes (decode at gemma-2b's widths with
+   T of 64, 1024, 4096 and 32768 and at zamba2's served shape, each also as
+   the ms of one call issued from Python; flash also at zamba2's shared
    block, B=2 S=1024 H=Hkv=32 D=80, from phase 8); a
    ``[bound]`` line for each timed shape with the bytes and operations its
    bound comes from; and the script's total time.
@@ -94,6 +99,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import resource
 import statistics
 import subprocess
@@ -162,11 +168,14 @@ SWEEP = [
     (2, 4, 1, 64, 256, 300, 256),
     (1, 2, 2, 32, 128, 0, 0),
 ]
-# gemma-2b widths: the cache Server.generate serves in phase 3 (T=64; the
-# plan goes from one split to two at pos 32), then a long cache
-FULL = [(4, 8, 1, 256, 64, pos, 0) for pos in (0, 31, 32, 63)] + \
+# gemma-2b widths: the cache Server.generate serves in phase 3 (T=64) at
+# every position, so at each one where the plan changes; then long caches,
+# the timed 32k one and ring buffers past T
+FULL = [(4, 8, 1, 256, 64, pos, 0) for pos in range(64)] + \
     [(4, 8, 1, 256, 4096, pos, 0) for pos in (0, 1000, 4095)] + \
-    [(4, 8, 1, 256, 4096, 4096 + 500, 4096)]          # ring buffer, pos > T
+    [(4, 8, 1, 256, 4096, 4096 + 500, 4096),           # ring buffer, pos > T
+     (4, 8, 1, 256, 32768, 32767, 0),
+     (4, 8, 1, 256, 32768, 32768 + 5000, 32768)]
 # other configs' widths and the kernel's edge cases: phi-3-vision's D=96;
 # qwen2-72b's G=8; gemma3-27b's G=2, D=128; G=12 (two head groups) with D=40
 # (5 chunks of 8); G=3 with D=8 and a ring buffer; ragged T everywhere
@@ -190,9 +199,17 @@ FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 500, 32, 32, 96, 0), (1, 300, 4, 1, 40, 0),
                (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
 
-# the flash kernel each input dtype runs, as the profiler names it
+# the decode and flash kernels each input dtype runs, as the profiler names
+# them (a decode call of more than one split also runs the combine)
+DECODE_ROUTES = {torch.bfloat16: "decode_mma_kernel",
+                 torch.float32: "decode_simt_kernel"}
+DECODE_COMBINE = "decode_combine_kernel"
 FLASH_ROUTES = {torch.bfloat16: "flash_fwd_mma_kernel",
                 torch.float32: "flash_fwd_kernel"}
+# the decode shapes timed (B, H, Hkv, D, T, pos): gemma-2b's widths at the
+# served cache and longer ones, then zamba2-2.7b's shared block as served
+DECODE_TIMED = [(4, 8, 1, 256, T, T - 1) for T in (64, 1024, 4096, 32768)] + \
+    [(4, 32, 32, 80, 64, 63)]
 # zamba2-2.7b's shared attention block at its train phase's shape
 FLASH_ZAMBA2 = dict(B=2, S=1024, H=32, Hkv=32, D=80)
 # the [zamba2] phase's rounds: which route goes first alternates, so that
@@ -266,6 +283,42 @@ def _inputs(B, H, Hkv, D, T, dtype, seed=0):
 
 
 # ----------------------------------------------------------------- phase 1
+def _ptxas(log: str) -> dict:
+    """From a build's log: each kernel (its name and template arguments, from
+    the mangled name) with ptxas's registers and spill stores."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name, tmpl = _demangle(entry.group(1))
+            args = (["bf16"] if "bfloat16" in tmpl else
+                    ["f32"] if tmpl.startswith("If") else [])
+            args += re.findall(r"L[ib](\d+)E", tmpl)
+            name += f"<{','.join(args)}>" if args else ""
+            out[name] = {}
+        elif name in out:
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if spill:
+                out[name]["spill_stores"] = int(spill.group(1))
+            if regs:
+                out[name]["registers"] = int(regs.group(1))
+    return out
+
+
+def _demangle(mangled: str):
+    """The last of a mangled name's length-prefixed parts (namespaces come
+    first), and the rest of the name up to its parameters (the template
+    arguments, if any)."""
+    i, name = 3 if mangled.startswith("_ZN") else 2, mangled
+    while (size := re.match(r"\d+", mangled[i:])) is not None:
+        start = i + size.end()
+        name, i = mangled[start:start + int(size.group())], \
+            start + int(size.group())
+    end = mangled.find("Ev", i)
+    return name, mangled[i:end if end >= 0 else len(mangled)]
+
+
 def environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -282,11 +335,8 @@ def environment():
         for built in [pool.submit(ops.build) for ops in kernels.values()]:
             built.result()
     build_s = time.perf_counter() - t0
-    ptxas = {}
-    for name, ops in kernels.items():
-        log = ops.library_path().with_suffix(".log")   # written by the build
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
+    ptxas = {name: _ptxas(ops.library_path().with_suffix(".log").read_text())
+             for name, ops in kernels.items()}   # the logs the builds wrote
     print(smi)
     _say("env", card=smi, torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
@@ -301,14 +351,29 @@ def kernel_vs_plain():
     at ``TOL`` (absolute plus relative).  And, since the kernel computes in
     fp32 and rounds only its output, against the plain version in fp32 on the
     same inputs: within half an ulp of the output dtype (2**-8 of the value
-    in bf16, nothing in fp32) plus the fp32 ``TOL``."""
-    errors = {}
+    in bf16, nothing in fp32) plus the fp32 ``TOL``.  The profiler's kernel
+    names show each bf16 case on the tensor-core kernel and each fp32 case
+    on the CUDA-core one, and a case the plan gives one split in one launch,
+    with no combine."""
+    errors, routes, n_sm = {}, {}, torch.cuda.get_device_properties(0) \
+        .multi_processor_count
     for dtype in (torch.float32, torch.bfloat16):
         half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+        route, ran = DECODE_ROUTES[dtype], set()
         for B, H, Hkv, D, T, pos, window in SWEEP + FULL + OTHER:
             q, k, v = _inputs(B, H, Hkv, D, T, dtype)
-            got = decode_attention(q, k, v, pos=pos, window=window)
-            torch.cuda.synchronize()
+            got, names = _profiled(
+                lambda: decode_attention(q, k, v, pos=pos, window=window),
+                "decode_")
+            name = (f"{str(dtype)[6:]} B{B} H{H} Hkv{Hkv} D{D} T{T} pos{pos}"
+                    f" w{window}")
+            cut = da_ops.plan(B, H, Hkv, D, min(pos + 1, T), n_sm, dtype)
+            if not any(route in n for n in names) or not all(
+                    route in n or DECODE_COMBINE in n for n in names) or (
+                    cut.launches == 1 and len(names) != 1):
+                raise AssertionError(f"decode at {name} ({cut}) ran {names}, "
+                                     f"want {route}")
+            ran.update(names)
             want = decode_attention_ref(q, k, v, pos=pos, window=window).float()
             want32 = decode_attention_ref(q.float(), k.float(), v.float(),
                                           pos=pos, window=window)
@@ -325,8 +390,10 @@ def kernel_vs_plain():
                 raise AssertionError(
                     f"kernel disagrees with plain at {name}: max|err| "
                     f"{errors[name]}, against fp32 {diff32.max().item()}")
+            del q, k, v, got, want, want32, diff, diff32
+        routes[str(dtype)[6:]] = sorted(ran)
     _say("kernel_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
-         errors=errors)
+         routes=routes, errors=errors)
     return errors
 
 
@@ -351,8 +418,8 @@ def flash_vs_plain():
         route, ran = FLASH_ROUTES[dtype], set()
         for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER:
             q, k, v = _flash_inputs(B, S, H, Hkv, D, dtype)
-            got, names = _flash_kernels(
-                lambda: flash_attention(q, k, v, window=window))
+            got, names = _profiled(
+                lambda: flash_attention(q, k, v, window=window), "flash_fwd")
             name = f"{str(dtype)[6:]} B{B} S{S} H{H} Hkv{Hkv} D{D} w{window}"
             # bf16 on the tensor cores, fp32 on the CUDA cores
             if not names or not all(route in n for n in names):
@@ -393,16 +460,19 @@ def flash_vs_plain():
     return errors
 
 
-def _flash_kernels(fn, tries: int = 3):
-    """``fn()`` and the names of the flash kernels it launched, from
-    ``torch.profiler``.  The profiler may drop a launch's record (one of 13
-    in one run), so a call in which it saw none is made again."""
+def _profiled(fn, part: str, tries: int = 5, calls: int = 2):
+    """``fn()`` and the names of the kernels it launched whose names hold
+    ``part``, from ``torch.profiler``.  The profiler may drop a launch's
+    record (one of 13 in one run; in another, every record of one call
+    three times over), so each session makes ``calls`` calls, and a session
+    in which it saw none is made again."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = fn()
+            for _ in range(calls):
+                out = fn()
             torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() if "flash_fwd" in e.key]
+        names = [e.key for e in prof.key_averages() if part in e.key]
         if names:
             break
     return out, names
@@ -1126,8 +1196,10 @@ def _bound(kernel: str, shape: str, nbytes: int, ops: int,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def timings(T: int, pos: int, card: str):
-    B, H, Hkv, D = GEMMA["B"], GEMMA["H"], GEMMA["Hkv"], GEMMA["D"]
+def timings(B: int, H: int, Hkv: int, D: int, T: int, pos: int, card: str):
+    """The decode kernel in bf16: device ms, the ms of a call issued from
+    Python, the plain version's and SDPA's device ms, and the byte bound
+    (the valid K/V entries, q and the output, each moved once)."""
     q, k, v = _inputs(B, H, Hkv, D, T, torch.bfloat16, seed=5)
     limit = min(pos + 1, T)
     nbytes = (2 * B * limit * Hkv * D + 2 * B * H * D) * 2
@@ -1136,8 +1208,11 @@ def timings(T: int, pos: int, card: str):
     lib = library_call(q, k, v, pos)
     ref = decode_attention_ref(q, k, v, pos=pos)
     lib_err = (lib[:, :, 0].float() - ref.float()).abs().max().item()
+    cut = da_ops.plan(B, H, Hkv, D, limit,
+                      torch.cuda.get_device_properties(0).multi_processor_count)
     return {
         "shape": shape,
+        "plan": cut._asdict(),
         "ms": device_ms(lambda: decode_attention(q, k, v, pos=pos)),
         "call_ms": call_ms(lambda: decode_attention(q, k, v, pos=pos)),
         "plain_ms": device_ms(lambda: decode_attention_ref(q, k, v, pos=pos)),
@@ -1166,6 +1241,7 @@ def flash_timings(B: int, S: int, card: str, H: int = GEMMA["H"],
     return {
         "shape": shape,
         "ms": device_ms(lambda: flash_attention(q, k, v)),
+        "call_ms": call_ms(lambda: flash_attention(q, k, v), calls=20),
         "plain_ms": device_ms(lambda: ref_attention(q, k, v), calls=5,
                               replays=4),
         "library_ms": device_ms(library),
@@ -1254,8 +1330,8 @@ def main() -> None:
     for arch in ("mamba2-1.3b", "zamba2-2.7b"):
         serve(card, arch)
         torch.cuda.empty_cache()
-    serving = timings(64, 63, card)
-    long = timings(32768, 32767, card)
+    decode_rows = [timings(*shape, card=card) for shape in DECODE_TIMED]
+    serving = decode_rows[0]          # the served cache, T=64
     training = flash_timings(4, 1024, card)
     long_train = flash_timings(4, 4096, card)
     flash_entry = {
@@ -1280,8 +1356,7 @@ def main() -> None:
         "max_abs_err": max(errors.values()),
         **{k: serving[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
-        "serving_shape": serving,
-        "long_shape": long,
+        "shapes": decode_rows,
     }
     ssd_train = ssd_timings(SSD_MAMBA2, card)
     ssd_long = ssd_timings(SSD_LONG, card)

@@ -3,8 +3,11 @@
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
 ``sm_90a`` at first use into ``build/`` at the root of the repository.  The
 library's name carries a digest of the source and the flags, so an edited
-source builds anew.  The compiler's output, with ``ptxas``'s register,
-shared-memory and spill counts, is kept beside the library as ``.log``.
+source builds anew in a new process.  Within a process a source is hashed,
+built and loaded once: every later :func:`load` is a dictionary lookup, since
+a wrapper calls it on every launch.  The compiler's output, with ``ptxas``'s
+register, shared-memory and spill counts, is kept beside the library as
+``.log``.
 """
 
 from __future__ import annotations
@@ -15,13 +18,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_loaded: Dict[Path, ctypes.CDLL] = {}
+_loaded: Dict[Path, ctypes.CDLL] = {}   # by source: loaded once a process
 
 
 def _nvcc() -> str:
@@ -42,11 +45,16 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}-{digest}.so"
 
 
-def load(source: Path) -> ctypes.CDLL:
-    """Compile ``source`` (once per version) and load it; raises on failure."""
+def load(source: Path,
+         bind: Optional[Callable[[ctypes.CDLL], None]] = None) -> ctypes.CDLL:
+    """The library built from ``source``: compiled (once per version) and
+    loaded on the first call in this process, which also runs ``bind`` on it
+    (to declare its functions' ``argtypes``); from the cache after that,
+    without reading the source.  Raises if the build fails."""
+    lib = _loaded.get(source)
+    if lib is not None:
+        return lib
     so = library_path(source)
-    if so in _loaded:
-        return _loaded[so]
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -57,5 +65,8 @@ def load(source: Path) -> ctypes.CDLL:
             raise RuntimeError(f"nvcc failed on {source.name} "
                                f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, so)
-    _loaded[so] = ctypes.CDLL(str(so))
-    return _loaded[so]
+    lib = ctypes.CDLL(str(so))
+    if bind is not None:
+        bind(lib)
+    _loaded[source] = lib
+    return lib

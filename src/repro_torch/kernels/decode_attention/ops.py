@@ -2,9 +2,15 @@
 
 ``csrc/decode_attention.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface at first use, and loaded with
-``ctypes`` (``kernels/_build.py``).  Tensors on the CPU go
+``ctypes`` (``kernels/_build.py``).  bf16 inputs run on the tensor cores
+(``mma.sync``), fp32 inputs on the CUDA cores.  Tensors on the CPU go
 through the plain version in ``ref.py``; tensors on a CUDA device launch the
 kernel, and anything the kernel cannot take raises.
+
+The wrapper is called once per attention layer and token, so what it does on
+the host is kept small: the library is loaded and bound once a process, the
+card's SM count read once a device, and scratch allocated only when the plan
+has more than one split.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ import ctypes
 import math
 import operator
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, NamedTuple
 
 import torch
 
@@ -22,13 +28,35 @@ from .ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
-# Mirrors of the limits in the CUDA source.
+# Mirrors of the CUDA source's constants (a CPU test parses them).
 MAX_D = 256
 MAX_SPLIT = 1024
-BLOCKS_PER_SM = 4      # split blocks to aim for on each SM
-MIN_SPLIT_LEN = 32     # keys: below this a split costs more than it saves
+MMA_HEADS = 8          # query heads of one KV head in a bf16 block: an MMA's n
+# the bf16 kernel's tiles by head dim: (DP, WARPS, STAGES); a K/V tile holds
+# 16 keys a warp, and the ring STAGES tiles
+MMA_TILES = ((64, 4, 4), (80, 4, 4), (128, 4, 4), (256, 4, 3))
+
+# The plan's own choices (host only).
+SM_SHARED = 228 * 1024   # shared memory of an H100 SM; each block reserves 1 KB
+SIMT_BLOCKS_PER_SM = 4   # fp32 blocks to aim for on each SM
+MIN_SPLIT_LEN = 64       # keys: below this a split costs more than it saves
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SM_COUNT: Dict[int, int] = {}   # by device index, read once
+
+
+class Plan(NamedTuple):
+    """How one call is cut: ``heads`` query heads a block takes, ``split_len``
+    keys a split takes, ``n_split`` splits (each holds a valid key)."""
+    heads: int
+    split_len: int
+    n_split: int
+
+    @property
+    def launches(self) -> int:
+        """Kernel launches of the call: one split writes the output itself,
+        more are merged by a second launch."""
+        return 1 if self.n_split == 1 else 2
 
 
 def library_path() -> Path:
@@ -36,31 +64,82 @@ def library_path() -> Path:
     return _build.library_path(SOURCE)
 
 
-def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source version) and load it."""
-    lib = _build.load(SOURCE)
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.decode_attention_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-    return lib
 
 
-def plan(B: int, H: int, Hkv: int, limit: int, n_sm: int
-         ) -> Tuple[int, int, int]:
-    """(query heads a block takes, keys a split takes, number of splits).
+def build() -> ctypes.CDLL:
+    """Compile the kernel (once per source version) and load it (once per
+    process)."""
+    return _build.load(SOURCE, _bind)
 
-    A block takes up to 8 query heads of one KV head; the valid length is cut
-    into splits so that about ``BLOCKS_PER_SM`` blocks run on each SM, and no
-    split has fewer than ``MIN_SPLIT_LEN`` keys unless the whole cache has.
+
+def mma_tile(D: int) -> tuple:
+    """(DP, WARPS, STAGES) of the bf16 kernel at head dim ``D``: the width D
+    is padded to, the warps of a block (16 keys each a tile) and the tiles of
+    its ring.  Mirrors ``dispatch_mma`` in the CUDA source."""
+    if D < 1 or D > MAX_D:
+        raise ValueError(f"head dim {D} is not in 1..{MAX_D}")
+    return next(tile for tile in MMA_TILES if D <= tile[0])
+
+
+def mma_smem_bytes(D: int) -> int:
+    """Shared memory of one bf16 block at head dim ``D``: the Q rows and the
+    K and V rings, rows padded by 16 bytes, or the warps' merge if larger.
+    Mirrors ``mma_smem_bytes`` in the CUDA source."""
+    DP, warps, stages = mma_tile(D)
+    ring = 2 * (MMA_HEADS + 2 * stages * 16 * warps) * (DP + 8)
+    return max(ring, 4 * 32 * (warps - 1) * (DP // 4 + 4))
+
+
+def plan(B: int, H: int, Hkv: int, D: int, limit: int, n_sm: int,
+         dtype: torch.dtype = torch.bfloat16) -> Plan:
+    """The cut of a call over ``limit`` valid keys on a card of ``n_sm`` SMs.
+
+    A bf16 block takes up to 8 query heads of one KV head (an MMA's n), an
+    fp32 block up to 8.  The valid length is cut into splits so that every
+    SM holds as many blocks as fit on it (bf16: as its shared memory allows;
+    fp32: ``SIMT_BLOCKS_PER_SM``), no split has fewer than ``MIN_SPLIT_LEN``
+    keys unless the whole cache has, and, in bf16, a split is a whole number
+    of a warp's 16 keys.
     """
     G = H // Hkv
-    gm = 1 if G == 1 else 2 if G == 2 else 4 if G <= 4 else 8
-    rows = B * Hkv * -(-G // gm)
-    n_split = max(1, min(-(-BLOCKS_PER_SM * n_sm // rows),
+    if dtype == torch.bfloat16:
+        heads, align = MMA_HEADS, 16
+        per_sm = SM_SHARED // (mma_smem_bytes(D) + 1024)
+    else:
+        heads, align = (1 if G == 1 else 2 if G == 2 else 4 if G <= 4 else 8), 1
+        per_sm = SIMT_BLOCKS_PER_SM
+    rows = B * Hkv * -(-G // heads)
+    n_split = max(1, min(-(-per_sm * n_sm // rows),
                          -(-limit // MIN_SPLIT_LEN), MAX_SPLIT))
     split_len = -(-limit // n_split)
-    return gm, split_len, -(-limit // split_len)
+    split_len = -(-split_len // align) * align
+    return Plan(heads, split_len, -(-limit // split_len))
+
+
+def scratch(p: Plan, B: int, H: int, D: int, device: torch.device):
+    """The fp32 partials (acc, (m, l)) a call cut by ``p`` needs: none when
+    one split writes the output itself."""
+    if p.n_split == 1:
+        return None, None
+    return (torch.empty((B * H, p.n_split, D), dtype=torch.float32,
+                        device=device),
+            torch.empty((B * H, p.n_split, 2), dtype=torch.float32,
+                        device=device))
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    n = _SM_COUNT.get(index)
+    if n is None:
+        n = _SM_COUNT[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n
 
 
 def _check(q, cache_k, cache_v):
@@ -106,18 +185,16 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     lib = build()
     limit = min(pos + 1, T)   # both cache rules: idx <= pos, and idx < T
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    gm, split_len, n_split = plan(B, H, Hkv, limit, n_sm)
+    p = plan(B, H, Hkv, D, limit, _sm_count(q.device), q.dtype)
     out = torch.empty_like(q)
-    part_acc = torch.empty((B * H, n_split, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B * H, n_split, 2), dtype=torch.float32,
-                          device=q.device)
+    part_acc, part_ml = scratch(p, B, H, D, q.device)
     with torch.cuda.device(q.device):   # the runtime launches on the current one
         err = lib.decode_attention_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), cache_k.data_ptr(),
-            cache_v.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), B, H, Hkv, T, D, limit, gm, split_len, n_split,
+            cache_v.data_ptr(), out.data_ptr(),
+            None if part_acc is None else part_acc.data_ptr(),
+            None if part_ml is None else part_ml.data_ptr(),
+            B, H, Hkv, T, D, limit, p.heads, p.split_len, p.n_split,
             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")

@@ -27,14 +27,17 @@ def library_path() -> Path:
     return _build.library_path(SOURCE)
 
 
-def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source version) and load it."""
-    lib = _build.load(SOURCE)
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.fused_preprocess_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p])
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile the kernel (once per source version) and load it (once per
+    process)."""
+    return _build.load(SOURCE, _bind)
 
 
 def fused_preprocess(images: torch.Tensor, crop: Tuple[int, int, int, int],

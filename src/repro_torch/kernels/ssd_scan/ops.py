@@ -37,14 +37,17 @@ def library_path() -> Path:
     return _build.library_path(SOURCE)
 
 
-def build() -> ctypes.CDLL:
-    """Compile the kernel (once per source version) and load it."""
-    lib = _build.load(SOURCE)
+def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.ssd_scan_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    return lib
+
+
+def build() -> ctypes.CDLL:
+    """Compile the kernel (once per source version) and load it (once per
+    process)."""
+    return _build.load(SOURCE, _bind)
 
 
 def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
