@@ -27,15 +27,20 @@ code is not 0:
    each bf16 case on the tensor-core kernel and each fp32 case on the
    CUDA-core one; and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
-   recompute).  SSD scan: the JAX ssd sweep's shapes, mamba2-1.3b's training
-   shape (B=4, S=2048, nh=64, P=64, N=128, 8 chunks of 256), zamba2-2.7b's
-   (nh=80, N=64) and a long sequence (B=1, S=32768), output and final
-   state, against the per-token oracle up to S=1024 and ``ssd_chunked``
-   beyond; and one gradient through its autograd function (wiring only, as
-   for flash).  Fused preprocess (crop, cast, normalize): the JAX sweep's
-   crops, the image feed's batch (256 x 250 x 250 x 3, centre 224, ImageNet's
-   mean and std), one channel, and 3.1 GB whose byte index passes 2**31,
-   within 1e-6; and the inputs its wrapper must refuse;
+   recompute).  SSD scan: the JAX ssd sweep's shapes, a ragged chunk (Q =
+   S = 200), a single chunk with G=4, widths its 16-byte copies cannot take
+   (N of 12 and 4, P of 20 and 7), mamba2-1.3b's training shape (B=4,
+   S=2048, nh=64, P=64, N=128, 8 chunks of 256), also fed as views of its
+   conv output as ``mamba2_forward`` passes them, zamba2-2.7b's (nh=80,
+   N=64) and a long sequence (B=1, S=32768), output and final state,
+   against the per-token oracle up to S=1024 and ``ssd_chunked`` beyond; the
+   profiler's kernel names show each bf16 case on the four tensor-core
+   passes and each fp32 case on the CUDA-core kernel; and one gradient
+   through its autograd function (wiring only, as for flash).  Fused
+   preprocess (crop, cast, normalize): the JAX sweep's crops, the image
+   feed's batch (256 x 250 x 250 x 3, centre 224, ImageNet's mean and std),
+   one channel, and 3.1 GB whose byte index passes 2**31, within 1e-6; and
+   the inputs its wrapper must refuse;
 2b. image feed: a lake of 2048 random 250 x 250 x 3 images, queried on the
    card with the torch TQL engine (a WHERE and its top-k form, each equal to
    the numpy engine's), streamed through the loader and ``DeviceFeeder`` as
@@ -86,7 +91,9 @@ code is not 0:
    normalizes), at the main path's shapes (decode at gemma-2b's widths with
    T of 64, 1024, 4096 and 32768 and at zamba2's served shape, each also as
    the ms of one call issued from Python; flash also at zamba2's shared
-   block, B=2 S=1024 H=Hkv=32 D=80, from phase 8); a
+   block, B=2 S=1024 H=Hkv=32 D=80, from phase 8; ssd at mamba2's, the long
+   and zamba2's shapes, with the ms of a call, each pass's ms and the bf16
+   route's own byte floor); a
    ``[bound]`` line for each timed shape with the bytes and operations its
    bound comes from; and the script's total time.
 
@@ -225,6 +232,18 @@ SSD_SWEEP = [(2, 128, 4, 32, 1, 16, 32), (1, 256, 8, 64, 2, 32, 64),
 SSD_MAMBA2 = (4, 2048, 64, 64, 1, 128, 256)
 SSD_ZAMBA2 = (2, 1024, 80, 64, 1, 64, 256)
 SSD_LONG = (1, 32768, 64, 64, 1, 128, 256)
+# the bf16 route's edges: a ragged chunk (Q = S = 200, not a multiple of
+# 16) with N=8 and P=16; S=96 with G=4 as a single chunk; widths its
+# 16-byte copies cannot take (N=12, P=20; N=4 and an odd P=7 with chunks of
+# 50)
+SSD_EDGE = [(2, 200, 4, 16, 1, 8, 256), (1, 96, 4, 32, 4, 16, 256),
+            (1, 128, 2, 20, 1, 12, 64), (1, 100, 3, 7, 1, 4, 50)]
+# the kernels each input dtype runs, as the profiler names them: bf16 the
+# four tensor-core passes, fp32 the CUDA-core kernel
+SSD_ROUTES = {torch.bfloat16: ("ssd_chunk_state_kernel", "ssd_chunk_cb_kernel",
+                               "ssd_state_pass_kernel",
+                               "ssd_chunk_scan_kernel"),
+              torch.float32: ("ssd_fwd_kernel",)}
 SSD_REF_MAX_S = 1024      # the per-token oracle's loop is cheap up to here
 PRE_ATOL = 1e-6                                      # tests/test_kernels.py
 SWEEP_MEAN, SWEEP_STD = (0.48, 0.45, 0.41), (0.23, 0.22, 0.23)   # its sweep
@@ -492,25 +511,68 @@ def _ssd_inputs(B, S, nh, P, G, N, dtype, seed=0):
     return x.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype)
 
 
+def _ssd_views(B, S, nh, P, G, N, dtype, seed=0):
+    """``_ssd_inputs``' values with x, B and C as views of one (B, S, nh*P +
+    2*G*N) tensor, the strides ``mamba2_forward`` passes (its conv output
+    ``xbc``): only their last dimension is contiguous."""
+    x, dt, A, Bm, Cm = _ssd_inputs(B, S, nh, P, G, N, dtype, seed)
+    xbc = torch.cat([t.reshape(B, S, -1) for t in (x, Bm, Cm)], dim=-1)
+    d_in = nh * P
+    views = (xbc[..., :d_in].reshape(B, S, nh, P),
+             xbc[..., d_in:d_in + G * N].reshape(B, S, G, N),
+             xbc[..., d_in + G * N:].reshape(B, S, G, N))
+    if any(v.is_contiguous() or v.stride(1) != xbc.shape[-1] for v in views):
+        raise AssertionError("the xbc slices are not strided views")
+    return views[0], dt, A, views[1], views[2]
+
+
+def _ssd_routes(fn, route, tries: int = 3):
+    """``fn()`` and the ssd kernels it launched, by the profiler's names,
+    from up to ``tries`` sessions until each kernel of ``route`` is seen (the
+    profiler may drop a record)."""
+    seen = set()
+    for _ in range(tries):
+        out, names = _profiled(fn, "ssd_")
+        seen.update(names)
+        if all(any(k in n for n in seen) for k in route):
+            break
+    return out, sorted(seen)
+
+
 def ssd_vs_plain():
     """The ssd kernel against its plain version (the per-token oracle up to
     ``SSD_REF_MAX_S``, ``ssd_chunked`` beyond), with ``kernel_vs_plain``'s two
     gates on the output, and the final state (fp32 in both) within the fp32
-    ``TOL`` of the plain version computed in fp32.  Then one gradient through
-    its autograd function against plain autograd: its backward recomputes
+    ``TOL`` of the plain version computed in fp32: the JAX sweep's shapes,
+    the bf16 route's edges, mamba2's, zamba2's and the long shape, and
+    mamba2's shape again fed as views of its conv output.  The profiler's
+    kernel names show each bf16 case on the four tensor-core passes and each
+    fp32 case on the CUDA-core kernel.  Then one gradient through its
+    autograd function against plain autograd: its backward recomputes
     through ``ssd_chunked``, as in JAX, so that check covers the wiring only;
     the mamba2 and zamba2 phases' loss and gradient norm through the kernel
     and through ``ssd_chunked`` are where its output reaches the gradients."""
-    errors = {}
+    errors, routes = {}, {}
     tol32 = TOL[torch.float32]
+    cases = [(shape, _ssd_inputs) for shape in
+             SSD_SWEEP + SSD_EDGE + [SSD_MAMBA2, SSD_ZAMBA2, SSD_LONG]]
+    cases.append((SSD_MAMBA2, _ssd_views))
     with torch.no_grad():
         for dtype in (torch.float32, torch.bfloat16):
             half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
-            for B, S, nh, P, G, N, Q in SSD_SWEEP + [SSD_MAMBA2, SSD_ZAMBA2,
-                                                      SSD_LONG]:
-                x, dt, A, Bm, Cm = _ssd_inputs(B, S, nh, P, G, N, dtype)
-                y, st = ssd(x, dt, A, Bm, Cm, chunk=Q)
-                torch.cuda.synchronize()
+            route, ran = SSD_ROUTES[dtype], set()
+            for (B, S, nh, P, G, N, Q), make in cases:
+                x, dt, A, Bm, Cm = make(B, S, nh, P, G, N, dtype)
+                (y, st), names = _ssd_routes(
+                    lambda: ssd(x, dt, A, Bm, Cm, chunk=Q), route)
+                name = (f"{str(dtype)[6:]} B{B} S{S} nh{nh} P{P} G{G} N{N} "
+                        f"Q{min(Q, S)}"
+                        + (" xbc views" if make is _ssd_views else ""))
+                if not all(any(k in n for n in names) for k in route) or \
+                        not all(any(k in n for k in route) for n in names):
+                    raise AssertionError(f"ssd at {name} ran {names}, want "
+                                         f"{route}")
+                ran.update(names)
                 plain = (ref_ssd if S <= SSD_REF_MAX_S
                          else functools.partial(ssd_chunked, chunk=Q))
                 want32, st32 = plain(x.float(), dt, A, Bm.float(), Cm.float())
@@ -519,8 +581,6 @@ def ssd_vs_plain():
                 diff = (y.float() - want).abs()
                 diff32 = (y.float() - want32).abs()
                 dst = (st - st32).abs()
-                name = (f"{str(dtype)[6:]} B{B} S{S} nh{nh} P{P} G{G} N{N} "
-                        f"Q{Q}")
                 errors[name] = diff.max().item()
                 ok = (bool((diff <= TOL[dtype] + TOL[dtype] * want.abs()).all())
                       and bool((diff32 <= tol32
@@ -535,6 +595,7 @@ def ssd_vs_plain():
                         f"state {dst.max().item()}")
                 del x, dt, A, Bm, Cm, y, st, want, want32, st32, diff, diff32
                 torch.cuda.empty_cache()
+            routes[str(dtype)[6:]] = sorted(ran)
     inputs = [t.requires_grad_() for t in
               _ssd_inputs(1, 512, 64, 64, 1, 128, torch.bfloat16, seed=1)]
     gen = torch.Generator("cuda").manual_seed(2)
@@ -552,7 +613,7 @@ def ssd_vs_plain():
                for a, b in zip(got, want)):
         raise AssertionError(f"ssd gradient differs from plain: {grad_err}")
     _say("ssd_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
-         grad_max_abs_err=grad_err, errors=errors)
+         grad_max_abs_err=grad_err, routes=routes, errors=errors)
     return errors
 
 
@@ -1123,13 +1184,14 @@ def trace(srv, card: str):
 
 
 # ----------------------------------------------------------------- phase 8
-def zamba2(card: str):
+def zamba2(card: str, ssd_here: dict):
     """Loss and gradients of one batch on full-width zamba2-2.7b through the
     kernels and through the plain impls; no optimizer (its state would be a
     27 GB checkpoint).  Each route is timed in every round of
     ``ZAMBA2_ORDER``, the first route alternating, and reported as its
     readings, their median and spread, beside the ssd and flash kernels'
-    device ms and their plain versions' at the shapes this pass gives them."""
+    device ms and their plain versions' at the shapes this pass gives them
+    (``ssd_here``: ``ssd_timings`` at ``SSD_ZAMBA2``)."""
     cfg = get_arch("zamba2-2.7b")
     B, S = 2, 1024
     torch.cuda.reset_peak_memory_stats()
@@ -1165,7 +1227,7 @@ def zamba2(card: str):
          kernel_vs_torch_rel=rel, seconds=secs,
          median_s={k: statistics.median(v) for k, v in secs.items()},
          spread_s={k: max(v) - min(v) for k, v in secs.items()},
-         ssd_at_its_shape=ssd_timings(SSD_ZAMBA2, card),
+         ssd_at_its_shape=ssd_here,
          flash_at_its_shape=flash, peak_memory_gb=peak_gb)
     return flash
 
@@ -1255,21 +1317,41 @@ def ssd_timings(shape, card: str):
     """The ssd kernel in bf16: its bound is the larger of the bytes (x, dt,
     A, B and C read once, y and the state written once) over the memory rate
     and the operations, Q(Q+1)(N+P) + 4QNP for each (b, h, chunk), at the
-    bf16 tensor-core peak."""
+    bf16 tensor-core peak.  Beside it, the bf16 route's own byte floor (x
+    read twice, y written once, the chunk states (B, S/Q, nh, N, P) fp32
+    written, read, written and read, B, C, dt read once, the state written
+    once) over the memory rate; the ms of a call issued from Python; and
+    each pass's device ms from the profiler."""
     B, S, nh, P, G, N, Q = shape
     x, dt, A, Bm, Cm = _ssd_inputs(B, S, nh, P, G, N, torch.bfloat16, seed=5)
-    nbytes = (2 * B * S * nh * P * 2 + B * S * nh * 4 + nh * 4
-              + 2 * B * S * G * N * 2 + B * nh * N * P * 4)
+    x_bytes, states_bytes = B * S * nh * P * 2, B * S // Q * nh * N * P * 4
+    rest = B * S * nh * 4 + 2 * B * S * G * N * 2 + B * nh * N * P * 4
+    nbytes = 2 * x_bytes + rest + nh * 4
+    floor_bytes = 3 * x_bytes + 4 * states_bytes + rest
     ops = B * nh * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
     shape = f"B={B} S={S} nh={nh} P={P} G={G} N={N} Q={Q} bf16"
+
+    def call():
+        return ssd(x, dt, A, Bm, Cm, chunk=Q)
     with torch.no_grad():
+        for _ in range(3):   # a profiler session may keep no record
+            passes = {re.search(r"ssd_\w+(<[\w, ]+>)?", k).group(0):
+                      v["ms_per_launch"] for k, v in
+                      kernel_times(call, calls=5)["kernels_by_time"].items()
+                      if "ssd_" in k}
+            if len(passes) == len(SSD_ROUTES[torch.bfloat16]):
+                break
         out = {
             "shape": shape,
-            "ms": device_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=Q)),
+            "ms": device_ms(call),
+            "call_ms": call_ms(call, calls=20),
             "plain_ms": device_ms(lambda: ssd_chunked(x, dt, A, Bm, Cm,
                                                       chunk=Q),
                                   calls=3, replays=3),
             **_bound("ssd_scan", shape, nbytes, ops, BF16_OPS_PER_S, card),
+            "design_floor_bytes": floor_bytes,
+            "design_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3,
+            "passes_ms": passes,
             "library_ms": None,
             "card": card,
         }
@@ -1305,6 +1387,9 @@ def main() -> None:
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
     ssd_errors = ssd_vs_plain()
+    # timed here, where the profiler's per-pass records are kept
+    ssd_train, ssd_zamba2, ssd_long = (ssd_timings(shape, card) for shape in
+                                       (SSD_MAMBA2, SSD_ZAMBA2, SSD_LONG))
     pre_errors = preprocess_vs_plain()
     feed_launches, feed_err = image_feed(card)
     torch.cuda.empty_cache()
@@ -1325,7 +1410,7 @@ def main() -> None:
     trace_train(trainer, state, batch, card, "trace_train_mamba2")
     del trainer, state, batch, lake
     torch.cuda.empty_cache()
-    zamba2_train = zamba2(card)
+    zamba2_train = zamba2(card, ssd_zamba2)
     torch.cuda.empty_cache()
     for arch in ("mamba2-1.3b", "zamba2-2.7b"):
         serve(card, arch)
@@ -1358,8 +1443,6 @@ def main() -> None:
                                    "library_ms")},
         "shapes": decode_rows,
     }
-    ssd_train = ssd_timings(SSD_MAMBA2, card)
-    ssd_long = ssd_timings(SSD_LONG, card)
     ssd_entry = {
         "name": "ssd_scan",
         "route": "cuda",
@@ -1372,6 +1455,7 @@ def main() -> None:
         "library_note": "no single PyTorch call computes SSD",
         "training_shape": ssd_train,
         "long_shape": ssd_long,
+        "zamba2_shape": ssd_zamba2,
     }
     pre = preprocess_timings(card)
     pre_entry = {
