@@ -39,16 +39,21 @@ code is not 0:
    through its autograd function (wiring only, as for flash).  Fused
    preprocess (crop, cast, normalize): the JAX sweep's crops, the image
    feed's batch (256 x 250 x 250 x 3, centre 224, ImageNet's mean and std),
-   one channel, and 3.1 GB whose byte index passes 2**31, within 1e-6; and
-   the inputs its wrapper must refuse;
+   one channel, 3.1 GB whose byte index passes 2**31, every source offset
+   mod 16, an odd w*C, C of 4 and of 7 and 64 (above the kernel's table), one
+   row and a row of 4350 elements, within 1e-6; and the inputs its wrapper
+   must refuse;
 2b. image feed: a lake of 2048 random 250 x 250 x 3 images, queried on the
    card with the torch TQL engine (a WHERE and its top-k form, each equal to
    the numpy engine's), streamed through the loader and ``DeviceFeeder`` as
    uint8 and crop-normalized by the kernel, one launch a batch of 256: the
    top-k view, then all 2048 images; each output against the plain version,
-   the top-k batch against numpy on the host; the query times of both
-   engines, images/s through the feed, the device's idle share, and the
-   host-to-device ms of one batch as uint8 and as fp32;
+   the top-k batch against numpy on the host, exactly; the query times of
+   both engines, images/s through the feed, the device's idle share, and the
+   host-to-device ms of one batch as uint8 and as fp32; then the feed's
+   split: the loader alone over the same lake, a batch's pinned copy and its
+   host-to-device copy, and the kernel's device ms a batch from the feed's
+   profile;
 3. serve: ``Server.generate`` on full-width gemma-2b (18 layers, bf16, random
    weights from a seeded generator): 32 prompt + 32 new tokens for a batch
    of 4, launched through the decode kernel once per layer and token; then
@@ -93,7 +98,8 @@ code is not 0:
    the ms of one call issued from Python; flash also at zamba2's shared
    block, B=2 S=1024 H=Hkv=32 D=80, from phase 8; ssd at mamba2's, the long
    and zamba2's shapes, with the ms of a call, each pass's ms and the bf16
-   route's own byte floor); a
+   route's own byte floor; preprocess at the feed's batch with it in L2 and
+   over a rotation of 5 batches, the ms of a call, and the 3.1 GB case); a
    ``[bound]`` line for each timed shape with the bytes and operations its
    bound comes from; and the script's total time.
 
@@ -104,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import re
@@ -255,12 +262,31 @@ FEED_IMAGES, FEED_BATCH, FEED_CROP = 2048, 256, (13, 13, 224, 224)
 FEED_WHERE = "SELECT * FROM dataset WHERE MEAN(images) > 127 AND labels != 1"
 FEED_TOPK = FEED_WHERE + " ORDER BY MEAN(images) DESC LIMIT 256"
 # (images, crop, mean, std): tests/test_kernels.py's fused-preprocess sweep,
-# the feed's batch, one channel, and 3.1 GB whose byte index passes 2**31
+# the feed's batch, one channel, and 3.1 GB whose byte index passes 2**31;
+# then the kernel's edges: every source offset mod 16 (x0 of 0-15) with one
+# channel and with three, on rows of odd length so that the offset also
+# moves row by row and quads cross rows' ends; an odd w*C; C = 4 (the
+# table's last width); one row; a row longer than a pass of a block (4350
+# elements); and C of 7 and 64, above the table's limit (a division per
+# element)
 PRE_CASES = [((3, 64, 64, 3), crop, SWEEP_MEAN, SWEEP_STD)
              for crop in ((0, 0, 32, 32), (8, 16, 32, 32), (1, 1, 30, 30))] + [
     ((FEED_BATCH, 250, 250, 3), FEED_CROP, IMAGENET_MEAN, IMAGENET_STD),
     ((5, 97, 131, 1), (3, 7, 61, 89), (0.449,), (0.226,)),
-    ((16384, 250, 250, 3), (200, 200, 50, 50), IMAGENET_MEAN, IMAGENET_STD)]
+    ((16384, 250, 250, 3), (200, 200, 50, 50), IMAGENET_MEAN, IMAGENET_STD)
+] + [((7, 45, 45, 1), (1, x0, 40, 23), (0.449,), (0.226,))
+     for x0 in range(16)] + [
+    ((7, 41, 41, 3), (1, x0, 37, 21), IMAGENET_MEAN, IMAGENET_STD)
+    for x0 in range(16)] + [
+    ((9, 50, 50, 3), (2, 5, 41, 37), IMAGENET_MEAN, IMAGENET_STD),
+    ((6, 64, 80, 4), (5, 3, 50, 61), IMAGENET_MEAN + (0.5,),
+     IMAGENET_STD + (0.25,)),
+    ((1, 5, 40, 3), (2, 4, 1, 30), IMAGENET_MEAN, IMAGENET_STD),
+    ((3, 9, 1500, 3), (1, 1, 7, 1450), IMAGENET_MEAN, IMAGENET_STD),
+    ((4, 33, 29, 7), (2, 1, 27, 23), tuple(0.1 * c for c in range(7)),
+     tuple(0.2 + 0.05 * c for c in range(7))),
+    ((2, 19, 21, 64), (1, 2, 15, 17), tuple(c / 64 for c in range(64)),
+     tuple(0.1 + c / 128 for c in range(64)))]
 
 
 def _say(tag: str, **fields) -> None:
@@ -627,9 +653,9 @@ def _images(shape, seed=0):
 
 def preprocess_vs_plain():
     """The crop-normalize kernel against its plain version on the card, at
-    ``PRE_ATOL``: the JAX sweep's crops, the image feed's batch, one channel,
-    and a batch of 3.1 GB whose flat byte index passes 2**31 (its window
-    reaches the last byte).  Then what the wrapper must refuse on the card."""
+    ``PRE_ATOL``: ``PRE_CASES``, among them a batch of 3.1 GB whose flat byte
+    index passes 2**31 (its window reaches the last byte).  Then what the
+    wrapper must refuse on the card."""
     errors = {}
     for shape, crop, mean, std in PRE_CASES:
         x = _images(shape)
@@ -645,15 +671,22 @@ def preprocess_vs_plain():
         del x, got, want
         torch.cuda.empty_cache()
     x = _images((2, 64, 64, 3))
+    wide = torch.zeros((1, 1, fp_ops.MAX_EXTENT, 1), dtype=torch.uint8,
+                       device="cuda")          # a row of 2**29 elements
+    bad_inputs = [(x[:, :, :, :2], (0, 0, 8, 8)), (x.float(), (0, 0, 8, 8)),
+                  (x.permute(0, 2, 1, 3), (0, 0, 8, 8)),
+                  (wide, (0, 0, 1, fp_ops.MAX_EXTENT))]
     refused = 0
-    for bad in (x[:, :, :, :2], x.float(), x.permute(0, 2, 1, 3)):
+    for bad, crop in bad_inputs:
         try:
-            fused_preprocess(bad, (0, 0, 8, 8), (0.5,) * bad.shape[3],
+            fused_preprocess(bad, crop, (0.5,) * bad.shape[3],
                              (0.25,) * bad.shape[3])
         except ValueError:
             refused += 1
-    if refused != 3:
-        raise AssertionError(f"the wrapper took {3 - refused} of 3 bad inputs")
+    del wide
+    if refused != len(bad_inputs):
+        raise AssertionError(f"the wrapper took {len(bad_inputs) - refused} "
+                             f"of {len(bad_inputs)} bad inputs")
     _say("preprocess_vs_plain", cases=len(errors),
          max_abs_err=max(errors.values()), atol=PRE_ATOL, errors=errors)
     return errors
@@ -682,14 +715,27 @@ def _h2d_ms(host: np.ndarray, copies: int = 5) -> float:
     return start.elapsed_time(end) / copies
 
 
+def _pin_ms(batch: dict, copies: int = 5) -> float:
+    """ms of the pinned host copies ``DeviceFeeder`` makes of one batch."""
+    t0 = time.perf_counter()
+    for _ in range(copies):
+        {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+         for k, v in batch.items()}
+    return (time.perf_counter() - t0) / copies * 1e3
+
+
+def _loader(view):
+    """The view's loader as the image feed reads it."""
+    return view.dataloader(tensors=["images", "labels"],
+                           batch_size=FEED_BATCH, shuffle=False,
+                           drop_last=True, num_workers=8)
+
+
 def _feed(view, batches: list):
     """The image path's tail: the view's loader, ``DeviceFeeder`` onto the
     card, ``fused_preprocess``; appends (uint8 batch, output) to
     ``batches``."""
-    loader = view.dataloader(tensors=["images", "labels"],
-                             batch_size=FEED_BATCH, shuffle=False,
-                             drop_last=True, num_workers=8)
-    for batch in DeviceFeeder(iter(loader), "cuda"):
+    for batch in DeviceFeeder(iter(_loader(view)), "cuda"):
         images = batch["images"]
         if images.dtype != torch.uint8 or images.device.type != "cuda":
             raise AssertionError(f"fed {images.dtype} on {images.device}")
@@ -755,6 +801,15 @@ def image_feed(card: str):
     _check_counts(counts, {"fused_preprocess": 1 + FEED_IMAGES // FEED_BATCH},
                   "image feed")
     busy_ms = _device_busy_ms(prof)
+    kernel = [(e.self_device_time_total, e.count) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "fused_preprocess_kernel" in e.key]
+    # the split: the loader alone over the same lake (no feeder, no card)
+    t0 = time.perf_counter()
+    host_batches = 0
+    for host_batch in _loader(DatasetView.full(ds)):
+        host_batches += 1
+    loader_s = time.perf_counter() - t0
 
     errors = []
     for images, _, out in top_batches + all_batches:
@@ -771,7 +826,7 @@ def image_feed(card: str):
                 / np.float32(IMAGENET_STD))
     _, labels, out = top_batches[0]
     host_err = float(np.abs(out.cpu().numpy() - host_out).max())
-    if host_err > PRE_ATOL or not np.array_equal(
+    if host_err != 0 or not np.array_equal(
             labels.cpu().numpy(), np.asarray(ds.labels.numpy())[rows]):
         raise AssertionError(f"the top-k batch differs from the host's crop "
                              f"of the numpy engine's rows: {host_err}")
@@ -787,6 +842,16 @@ def image_feed(card: str):
          feed_s=feed_s, images_per_s=FEED_IMAGES / feed_s,
          device_busy_ms=busy_ms, idle_share=1 - busy_ms / (feed_s * 1e3),
          h2d=h2d)
+    _say("image_feed_split", card=card, batch=FEED_BATCH,
+         loader_batches=host_batches, loader_s=loader_s,
+         loader_images_per_s=host_batches * FEED_BATCH / loader_s,
+         pin_ms_per_batch=_pin_ms(host_batch),
+         h2d_ms_per_batch=h2d["uint8_ms"],
+         kernel_ms_per_batch=(sum(t for t, _ in kernel)
+                              / max(1, sum(c for _, c in kernel)) / 1e3),
+         kernel_launches_profiled=sum(c for _, c in kernel),
+         feed_s=feed_s, feed_images_per_s=FEED_IMAGES / feed_s,
+         feed_idle_share=1 - busy_ms / (feed_s * 1e3))
     return counts["fused_preprocess"], max(errors + [host_err])
 
 
@@ -1358,27 +1423,55 @@ def ssd_timings(shape, card: str):
     return out
 
 
-def preprocess_timings(card: str):
+def preprocess_timings(card: str, rotation: int = 5):
     """The crop-normalize kernel at the image feed's batch: its bound is the
     window's bytes read once and the fp32 output written once, over the
-    memory rate, against three fp32 operations an element.  The batch (48
-    MB) may stay in the 50 MB L2 cache between calls."""
-    x = _images((FEED_BATCH, 250, 250, 3), seed=5)
+    memory rate, against three fp32 operations an element.  ``ms`` is one
+    batch (48 MB) called again and again, which may stay in the 50 MB L2
+    cache; ``rotation_ms`` turns through ``rotation`` distinct batches (240
+    MB), so each call reads its batch from device memory; ``call_ms`` is a
+    call issued from Python."""
+    batches = [_images((FEED_BATCH, 250, 250, 3), seed=5 + i)
+               for i in range(rotation)]
+    x = batches[0]
+    turn = itertools.cycle(batches)
     _, _, h, w = FEED_CROP
     n = FEED_BATCH * h * w * 3
     mean = torch.tensor(IMAGENET_MEAN, device="cuda")   # made outside the
     std = torch.tensor(IMAGENET_STD, device="cuda")     # graph's capture
     shape = f"B={FEED_BATCH} 250x250x3 uint8 crop={FEED_CROP} -> fp32"
-    return {
+    out = {
         "shape": shape,
         "ms": device_ms(lambda: fused_preprocess(x, FEED_CROP, IMAGENET_MEAN,
                                                  IMAGENET_STD)),
+        "rotation_ms": device_ms(
+            lambda: fused_preprocess(next(turn), FEED_CROP, IMAGENET_MEAN,
+                                     IMAGENET_STD), calls=4 * rotation),
+        "rotation_input_mb": rotation * x.numel() / 1e6,
+        "call_ms": call_ms(lambda: fused_preprocess(x, FEED_CROP,
+                                                    IMAGENET_MEAN,
+                                                    IMAGENET_STD)),
         "plain_ms": device_ms(lambda: ref_preprocess(x, FEED_CROP, mean, std)),
         **_bound("fused_preprocess", shape, n * (1 + 4), 3 * n,
                  FP32_OPS_PER_S, card),
         "library_ms": None,
         "card": card,
     }
+    del batches, turn
+    # PRE_CASES' 3.1 GB batch, whose byte index passes 2**31
+    big, crop = _images((16384, 250, 250, 3)), (200, 200, 50, 50)
+    big_n = 16384 * 50 * 50 * 3
+    big_shape = f"B=16384 250x250x3 uint8 crop={crop} -> fp32"
+    out["large"] = {
+        "shape": big_shape,
+        "ms": device_ms(lambda: fused_preprocess(big, crop, IMAGENET_MEAN,
+                                                 IMAGENET_STD), calls=5),
+        **_bound("fused_preprocess", big_shape, big_n * (1 + 4), 3 * big_n,
+                 FP32_OPS_PER_S, card)}
+    del big
+    torch.cuda.empty_cache()
+    _say("preprocess_timings", **out)
+    return out
 
 
 def main() -> None:

@@ -19,7 +19,13 @@ from .. import _build
 from .ref import ref_preprocess
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_preprocess.cu"
-MAX_C = 64   # mirror of kMaxC in the CUDA source
+# mirrors of the CUDA source's constants (a CPU test reads the source)
+MAX_C = 64          # kMaxC: the most channels the kernel takes
+TABLE_C = 4         # kTableC: up to here a table in shared memory, no division
+TABLE_STRIDE = 264  # kStride: table floats between two channels
+QUADS = 4           # kQuads: quads of 4 output elements a thread takes a pass
+THREADS = 256       # kThreads
+MAX_EXTENT = 2 ** 29  # the window's h and its row's w*C stay below this
 
 
 def library_path() -> Path:
@@ -68,9 +74,9 @@ def fused_preprocess(images: torch.Tensor, crop: Tuple[int, int, int, int],
     if images.dtype != torch.uint8 or not images.is_contiguous():
         raise ValueError(f"want contiguous uint8 images; got {images.dtype}"
                          f"{'' if images.is_contiguous() else ', strided'}")
-    if C > MAX_C or w * C >= 2 ** 31:
-        raise ValueError(f"unsupported C={C} (up to {MAX_C}) or crop row of "
-                         f"{w * C} elements")
+    if C > MAX_C or w * C >= MAX_EXTENT or h >= MAX_EXTENT:
+        raise ValueError(f"unsupported C={C} (up to {MAX_C}) or crop of {h} "
+                         f"rows of {w * C} elements (each below {MAX_EXTENT})")
     out = torch.empty((B, h, w, C), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
         return out
