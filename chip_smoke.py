@@ -17,13 +17,15 @@ code is not 0:
    sweep, full gemma-2b widths (B=4, H=8, Hkv=1, D=256) at the served cache
    (T=64, every position, so every one where the split plan changes), at
    T=4096 and at the timed T=32768, each with a ring buffer past T, and
-   other configs' widths and edge cases of head grouping and D; the
+   other configs' widths (granite's served cache among them) and edge cases
+   of head grouping and D; the
    profiler's kernel names show each bf16 case on the tensor-core kernel,
    each fp32 case on the CUDA-core one, and a one-split case in one launch.
    Flash attention: the JAX flash sweep's shapes,
    gemma-2b's training shape (B=4, S=1024, H=8, Hkv=1, D=256), ragged S,
    starcoder2's and gemma3's sliding windows, D of 32, 40, 96 and 128, G of
-   1, 2 and 8, zamba2's shared block (D=80); the profiler's kernel names show
+   1, 2 and 8, zamba2's shared block (D=80), granite-moe-1b-a400m's training
+   shape (B=4, S=1024, H=16, Hkv=8, D=64); the profiler's kernel names show
    each bf16 case on the tensor-core kernel and each fp32 case on the
    CUDA-core one; and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
@@ -83,14 +85,28 @@ code is not 0:
    2 x 9 launches) and through the plain impls, within 2e-2; each route
    timed four times, the first route alternating, beside the ssd and flash
    kernels' and their plain versions' device ms at this pass's shapes;
-9. serve ssm: phase 3's ``serve`` on full-width mamba2-1.3b and
-   zamba2-2.7b: zamba2 through the decode kernel 9 times a token (head dim
-   80), its decode logits through the kernel and plain attention within
-   2e-2 in fp32 (and, reported, in bf16); mamba2's decode logits at 512
-   positions (two chunks) against the train forward's through the ssd
+9. moe: one full-width granite-moe-1b-a400m MoE layer (32 experts, top-8,
+   d 1024) at 4 x 1024 tokens in bf16 and fp32, its forward and backward
+   under ``torch.cuda.set_sync_debug_mode("error")``; two more calls
+   bit-equal; in fp32 equal to the CPU's call within 1e-4 of its largest
+   output, with the same expert ids; the share of assignments dropped at
+   capacity 1280, and the layer's ms beside its expert GEMMs';
+10. train granite: ``Trainer.run`` on full-width granite-moe-1b-a400m (24
+   layers, bf16, remat "full"): phase 4's gates (8 steps of 4 x 1024 from
+   phase 7's lake of Zipf tokens, the flash kernel 2 x 24 times a step, a checkpoint restored bit for
+   bit, kernel vs plain attention within 2e-2) and the batch's aux loss;
+   then the trace of one step, with its device ms grouped by
+   ``TRACE_GROUPS``;
+11. serve ssm and moe: phase 3's ``serve`` on full-width mamba2-1.3b,
+   zamba2-2.7b and granite-moe-1b-a400m: zamba2 through the decode kernel 9
+   times a token (head dim 80), granite 24 times (head dim 64, G=2), each's
+   decode logits through the kernel and plain attention within 2e-2 in fp32
+   (and, reported, in bf16, where one expert choice flipped by rounding
+   moves a logit more than attention's error); mamba2's decode logits at
+   512 positions (two chunks) against the train forward's through the ssd
    kernel, within 2e-2 relative in fp32 (and, reported, in bf16; see
    ``scripts/ssm_bf16_drift.py`` for the JAX package's own bf16 drift);
-10. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
+12. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
    version's and one PyTorch call's (none computes SSD, none crops and
    normalizes), at the main path's shapes (decode at gemma-2b's widths with
@@ -101,13 +117,15 @@ code is not 0:
    route's own byte floor; preprocess at the feed's batch with it in L2 and
    over a rotation of 5 batches, the ms of a call, and the 3.1 GB case); a
    ``[bound]`` line for each timed shape with the bytes and operations its
-   bound comes from; and the script's total time.
+   bound comes from; decode and flash also at granite's served and
+   training shapes (H=16, Hkv=8, D=64); and the script's total time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -147,13 +165,18 @@ from repro_torch.kernels.fused_preprocess import (  # noqa: E402
     fused_preprocess, ops as fp_ops, ref_preprocess)
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ops as ssd_ops, ref_ssd, ssd)
+import repro_torch.launch.steps as steps_lib  # noqa: E402
+import repro_torch.models.model as model_lib  # noqa: E402
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
 from repro_torch.launch.steps import train_state_specs  # noqa: E402
 from repro_torch.launch.train import Trainer, TrainJob  # noqa: E402
 from repro_torch.models import abstract, build_model, named_leaves  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
-from repro_torch.models.param import tree_map, unflatten  # noqa: E402
+from repro_torch.models.param import (  # noqa: E402
+    materialize, torch_dtype, tree_map, unflatten)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 DECODE_RTOL = 2e-2                                  # tests/test_models.py:83
@@ -170,6 +193,17 @@ TRAIN_JOB = TrainJob(arch="gemma-2b", smoke=False, steps=8, global_batch=4,
 MAMBA2_JOB = TrainJob(arch="mamba2-1.3b", smoke=False, steps=8,
                       global_batch=4, seq_len=2048, warmup=2, num_docs=16,
                       checkpoint_every=8, log_every=1)
+# the granite phases: full-width granite-moe-1b-a400m, 8 steps of 4 x 1024
+# lake-fed tokens, and one of its MoE layers at the same 4 x 1024 tokens
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_JOB = TrainJob(arch=GRANITE, smoke=False, steps=8, global_batch=4,
+                       seq_len=1024, warmup=2, num_docs=16, checkpoint_every=8,
+                       log_every=1)
+MOE_RTOL = 1e-4           # the [moe] phase: fp32 card against the CPU
+# a token whose k-th and (k+1)-th router probabilities lie closer than this
+# share of the k-th may choose another expert on another device: fp32
+# rounding, not a fault; such tokens are counted and left out of the gate
+MOE_NEAR_TIE = 1e-5
 # each kernel's wrapper and its launch counter
 COUNTED = {"decode_attention": decode_attention,
            "flash_attention": flash_attention, "ssd_scan": ssd,
@@ -192,11 +226,13 @@ FULL = [(4, 8, 1, 256, 64, pos, 0) for pos in range(64)] + \
      (4, 8, 1, 256, 32768, 32768 + 5000, 32768)]
 # other configs' widths and the kernel's edge cases: phi-3-vision's D=96;
 # qwen2-72b's G=8; gemma3-27b's G=2, D=128; G=12 (two head groups) with D=40
-# (5 chunks of 8); G=3 with D=8 and a ring buffer; ragged T everywhere
+# (5 chunks of 8); G=3 with D=8 and a ring buffer; ragged T everywhere;
+# zamba2's shared block and granite's attention (G=2, D=64) as served
 OTHER = [(2, 32, 32, 96, 300, 299, 0), (1, 64, 8, 128, 2048, 1500, 0),
          (2, 32, 16, 128, 1000, 999, 0), (1, 12, 1, 40, 77, 50, 0),
          (3, 6, 2, 8, 33, 100, 33)] + \
-    [(4, 32, 32, 80, 64, pos, 0) for pos in (0, 63)]   # zamba2's shared block
+    [(4, 32, 32, 80, 64, pos, 0) for pos in (0, 63)] + \
+    [(4, 16, 8, 64, 64, pos, 0) for pos in (0, 1, 31, 32, 62, 63)]   # granite
 
 # flash attention (B, S, H, Hkv, D, window): the shapes of
 # tests/test_kernels.py::test_flash_attention_sweep (G = 2, 8, 1, 3)
@@ -212,6 +248,8 @@ FLASH_GEMMA = [(4, 1024, 8, 1, 256, 0), (1, 1000, 8, 1, 256, 0),
 FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 500, 32, 32, 96, 0), (1, 300, 4, 1, 40, 0),
                (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
+# granite-moe-1b-a400m's training shape (G=2, D=64)
+FLASH_GRANITE = dict(B=4, S=1024, H=16, Hkv=8, D=64)
 
 # the decode and flash kernels each input dtype runs, as the profiler names
 # them (a decode call of more than one split also runs the combine)
@@ -221,9 +259,10 @@ DECODE_COMBINE = "decode_combine_kernel"
 FLASH_ROUTES = {torch.bfloat16: "flash_fwd_mma_kernel",
                 torch.float32: "flash_fwd_kernel"}
 # the decode shapes timed (B, H, Hkv, D, T, pos): gemma-2b's widths at the
-# served cache and longer ones, then zamba2-2.7b's shared block as served
+# served cache and longer ones, then zamba2-2.7b's shared block and
+# granite-moe-1b-a400m's attention as served
 DECODE_TIMED = [(4, 8, 1, 256, T, T - 1) for T in (64, 1024, 4096, 32768)] + \
-    [(4, 32, 32, 80, 64, 63)]
+    [(4, 32, 32, 80, 64, 63), (4, 16, 8, 64, 64, 63)]
 # zamba2-2.7b's shared attention block at its train phase's shape
 FLASH_ZAMBA2 = dict(B=2, S=1024, H=32, Hkv=32, D=80)
 # the [zamba2] phase's rounds: which route goes first alternates, so that
@@ -461,7 +500,8 @@ def flash_vs_plain():
     for dtype in (torch.float32, torch.bfloat16):
         half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
         route, ran = FLASH_ROUTES[dtype], set()
-        for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER:
+        for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER \
+                + [tuple(FLASH_GRANITE.values()) + (0,)]:
             q, k, v = _flash_inputs(B, S, H, Hkv, D, dtype)
             got, names = _profiled(
                 lambda: flash_attention(q, k, v, window=window), "flash_fwd")
@@ -1046,7 +1086,8 @@ def zipf_lake(job: TrainJob, vocab_size: int, a: float = 1.2) -> Dataset:
     text follow it with an exponent near 1 (Zipf, 1949); numpy's sampler
     needs ``a`` > 1, and 1.2 is an arbitrary choice above that.  From
     uniform tokens there is nothing to learn but a flat output, and 8 steps
-    at lr 3e-4 do not lower mamba2's loss beyond its noise.  The step's time
+    at lr 3e-4 do not lower mamba2's loss beyond its noise, nor granite's
+    (11.614 at step 1, 11.637 at step 8 on uniform tokens).  The step's time
     does not depend on the token values."""
     ds = build_token_dataset(Dataset(MemoryProvider()), num_docs=0,
                              commit=False)
@@ -1106,6 +1147,11 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
                                                                 "grad_norm"))}
     if not max(rel.values()) < TRAIN_RTOL:
         raise AssertionError(f"kernel vs torch impls: {compare}")
+    extra = {}
+    if cfg.moe is not None:        # the load-balance loss of that batch
+        with torch.no_grad():
+            metrics = trainer.model.loss_fn(state["params"], batch)[1]
+        extra = {"aux": metrics["aux"].item(), "ce": metrics["ce"].item()}
 
     step_s = statistics.median(h["sec"] for h in out["history"][1:])
     tokens = job.global_batch * job.seq_len
@@ -1119,7 +1165,7 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
          state_gb=state_gb, save_s=ckpt.copy_s + ckpt.write_s,
          save_copy_s=ckpt.copy_s, save_write_s=ckpt.write_s,
          restore_s=restore_s, host_peak_gb=host_peak_gb,
-         kernel_vs_torch=compare, kernel_vs_torch_rel=rel)
+         kernel_vs_torch=compare, kernel_vs_torch_rel=rel, **extra)
     return trainer, state, batch, counts
 
 
@@ -1214,23 +1260,154 @@ def kernel_times(fn, calls: int, top: int = 8):
                 not e.is_user_annotation:
             per_launch = e.self_device_time_total / 1e3 / e.count
             per_call = max(1, round(e.count / calls))
-            kernels[e.key[:100]] = {"ms_per_launch": per_launch,
-                                    "launches_per_call": per_call,
-                                    "ms_per_call": per_launch * per_call,
-                                    "irregular": e.count % calls != 0}
+            kernels[e.key] = {"ms_per_launch": per_launch,
+                              "launches_per_call": per_call,
+                              "ms_per_call": per_launch * per_call,
+                              "irregular": e.count % calls != 0}
     busy = sum(k["ms_per_call"] for k in kernels.values())
     by_time = sorted(kernels.items(), key=lambda kv: -kv[1]["ms_per_call"])
+    # names cut to 100 characters for the line; a cut name met again keeps
+    # its rank as a suffix, so that no kernel hides another
+    shown = {}
+    for rank, (name, k) in enumerate(by_time[:top]):
+        shown[name[:100] if name[:100] not in shown
+              else f"{name[:100]} #{rank}"] = k
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / wall_ms if kernels else None,
-            "kernels_by_time": dict(by_time[:top]),
-            "kernel_kinds": len(kernels)}
+            "kernels_by_time": shown, "kernel_kinds": len(kernels)}
 
 
-def trace_train(trainer, state, batch, card: str, tag: str = "trace_train"):
-    """Where one full-width train step spends its time (it trains on)."""
+def trace_train(trainer, state, batch, card: str, tag: str = "trace_train",
+                groups: bool = False):
+    """Where one full-width train step spends its time (it trains on); with
+    ``groups``, also its device ms by ``TRACE_GROUPS``."""
     step = kernel_times(lambda: trainer.step_fn(state, batch), calls=2, top=16)
+    extra = {}
+    if groups:
+        extra["device_ms_by_group"] = device_ms_by_group(
+            lambda: trainer.step_fn(state, batch), calls=2)
     _say(tag, card=card, arch=trainer.cfg.name,
-         batch=list(batch["tokens"].shape), train_step=step)
+         batch=list(batch["tokens"].shape), train_step=step, **extra)
+
+
+# the groups of a step's device time, each kernel by the code that launched
+# it (for a backward kernel, the forward op its autograd node came from):
+# "dispatch" is the rest of ``moe_apply`` (router, top-k, sort, gathers,
+# the buffer's scatter, SiLU-GLU, combine), "other" the rest of the model
+# (norms, rope, residuals, embeddings, copies)
+TRACE_GROUPS = ("flash", "attention backward (plain)", "expert GEMMs",
+                "dispatch", "logits and loss", "optimizer", "other GEMMs",
+                "other", "unattributed")
+# the functions a grouped trace marks with a profiler range of their name
+# (``scope:<name>``), for the time of the trace
+TRACE_SCOPES = ((moe_lib, "moe_apply"), (model_lib.Model, "_dense_block"),
+                (model_lib.Model, "_logits"),
+                (model_lib, "softmax_cross_entropy"), (AdamW, "update"),
+                (steps_lib, "apply_updates"))
+
+
+@contextlib.contextmanager
+def _scoped(targets=TRACE_SCOPES):
+    """Each (owner, name) function of ``targets`` runs inside
+    ``torch.profiler.record_function("scope:<name>")`` until the block
+    ends: the ranges a grouped trace reads, made from outside the port (a
+    profiler does not record Python frames on every version)."""
+    from torch.profiler import record_function
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    for owner, name, fn in saved:
+        def scoped(*args, _fn=fn, _scope=f"scope:{name}", **kw):
+            with record_function(_scope):
+                return _fn(*args, **kw)
+        setattr(owner, name, scoped)
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _enclosing(events) -> dict:
+    """For each CPU event (by ``id``), the list of it and of the events that
+    enclose it in time on its thread, innermost first: the ops and ranges
+    it ran inside."""
+    threads = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and not e.is_async:
+            threads.setdefault(e.thread, []).append(e)
+    out = {}
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.time_range.start, -e.time_range.end))
+        stack = []
+        for e in evs:
+            while stack and stack[-1].time_range.end <= e.time_range.start:
+                stack.pop()
+            out[id(e)] = [e] + stack[::-1]
+            stack.append(e)
+    return out
+
+
+def _trace_group(kernel: str, names: list) -> str:
+    if "flash_fwd" in kernel:
+        return "flash"
+    if any("FlashAttentionBackward" in n for n in names):   # plain recompute
+        return "attention backward (plain)"
+    if "scope:update" in names or "scope:apply_updates" in names:
+        return "optimizer"
+    if "scope:moe_apply" in names:
+        return "expert GEMMs" if "aten::bmm" in names else "dispatch"
+    if "scope:_logits" in names or "scope:softmax_cross_entropy" in names:
+        return "logits and loss"
+    gemm = any(part in kernel.lower() for part in ("gemm", "nvjet", "xmma"))
+    return "other GEMMs" if gemm else "other"
+
+
+def device_ms_by_group(fn, calls: int) -> dict:
+    """Device ms a call of ``fn`` by ``TRACE_GROUPS``, from a
+    ``torch.profiler`` trace with ``TRACE_SCOPES`` marked: a kernel goes to
+    the group of the ranges around the op that launched it.  An op the
+    autograd engine runs for a node takes the ranges around the node's
+    forward op (matched by thread and sequence number); code that runs
+    inside a node in ranges of its own (a block's recompute under remat)
+    keeps its own.  Kernels the profiler ties to no op are
+    ``unattributed``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with _scoped(), profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    around = _enclosing(events)
+    forward = {}
+    for e in events:
+        if e.sequence_nr >= 0 and id(e) in around and \
+                not e.name.startswith("autograd::engine"):
+            forward.setdefault((e.thread, e.sequence_nr), e)
+    ms = dict.fromkeys(TRACE_GROUPS, 0.0)
+    busy = 0.0
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                not e.is_user_annotation:
+            busy += e.self_device_time_total / 1e3
+        if id(e) not in around or not e.kernels:
+            continue
+        chain = around[id(e)]
+        at = next((i for i, n in enumerate(chain) if n.name.startswith(
+            "autograd::engine::evaluate_function")), len(chain))
+        names = [n.name for n in chain[:at]]
+        if at < len(chain) and not any(n.startswith("scope:") for n in names):
+            node = chain[at]
+            names.append(node.name)
+            key = (node.fwd_thread, node.sequence_nr)
+            if key in forward:
+                names += [n.name for n in around[id(forward[key])]]
+        for k in e.kernels:
+            ms[_trace_group(k.name, names)] += k.duration / 1e3
+    ms["unattributed"] = busy - sum(ms.values())
+    return {"calls": calls, "device_busy_ms": busy / calls,
+            **{g: v / calls for g, v in ms.items()}}
 
 
 def trace(srv, card: str):
@@ -1246,6 +1423,113 @@ def trace(srv, card: str):
     attn = kernel_times(lambda: decode_attention(q, k, v, pos=32767), calls=20)
     _say("trace", card=card, arch=cfg.name, decode_step=step,
          decode_attention_32k=attn)
+
+
+# --------------------------------------------------------------- moe layer
+def moe_layer(card: str):
+    """One full-width granite MoE layer on the card at the train phase's 4 x
+    1024 tokens, in bf16 and fp32, random weights and input from a seeded
+    generator.  Its forward and backward run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so any op that waits on the
+    device raises; two more calls on the same input give the same output bit
+    for bit (the combine adds in a fixed order); in fp32 the output equals
+    the same call on the CPU within ``MOE_RTOL`` of its largest magnitude,
+    with the same expert ids but for near ties (``MOE_NEAR_TIE``).  Reports
+    the share of assignments dropped at capacity, and in bf16 the ms of a
+    forward, of a forward and backward, and of its three expert GEMMs."""
+    base = get_arch(GRANITE)
+    B, S = GRANITE_JOB.global_batch, GRANITE_JOB.seq_len
+    T, d = B * S, base.d_model
+    E, k = base.moe.num_experts, base.moe.top_k
+    cap = moe_lib.capacity(T, base)
+    report = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = base.with_(dtype=dtype)
+        gen = torch.Generator("cuda").manual_seed(0)
+        params = materialize(moe_lib.moe_specs(cfg), gen, "cuda")
+        x = torch.randn((B, S, d), generator=gen, device="cuda").to(
+            torch_dtype(dtype))
+        g = torch.randn((B, S, d), generator=gen, device="cuda")
+        paths, leaves = zip(*named_leaves(params))
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        xg = x.detach().requires_grad_()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_lib.moe_apply(unflatten(zip(paths, leaves)), xg, cfg)
+            grads = torch.autograd.grad((y.float() * g).sum() + aux,
+                                        leaves + [xg])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            again = [moe_lib.moe_apply(params, x, cfg)[0] for _ in range(2)]
+            idx, _, _ = moe_lib._route(params, x.reshape(T, d), cfg)
+            keep = moe_lib.dispatch(idx, cap, E)[3]
+        if not (torch.equal(again[0], again[1]) and torch.equal(again[0], y)):
+            raise AssertionError(f"moe {dtype}: two calls differ")
+        if not (torch.isfinite(y).all() and all(torch.isfinite(t).all()
+                                                 for t in grads)):
+            raise AssertionError(f"moe {dtype}: non-finite output or grads")
+        row = {"aux": aux.item(), "dropped_share": 1 - keep.float().mean().item(),
+               "grad_norm": torch.sqrt(sum(t.float().square().sum()
+                                           for t in grads)).item(),
+               "max_abs_out": y.abs().max().item(), "sync_free": True,
+               "bit_equal": True}
+        # the same call on the CPU: expert ids, and in fp32 the output
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        xc = x.cpu()
+        with torch.no_grad():
+            idx_c = moe_lib._route(cpu_params, xc.reshape(T, d), cfg)[0]
+            probs = torch.sort(torch.softmax(xc.reshape(T, d).float()
+                                             @ cpu_params["router"], -1),
+                               -1, descending=True).values
+        near = (probs[:, k - 1] - probs[:, k]) < MOE_NEAR_TIE * probs[:, k - 1]
+        same = (idx.cpu().sort(-1).values == idx_c.sort(-1).values).all(-1)
+        row.update(near_ties=int(near.sum()), ids_differ=int((~same).sum()))
+        if not bool((same | near).all()):
+            raise AssertionError(f"moe {dtype}: expert ids differ from the "
+                                 f"CPU's on {int((~same & ~near).sum())} tokens")
+        if dtype == "float32":
+            with torch.no_grad():
+                want = moe_lib.moe_apply(cpu_params, xc, cfg)[0].reshape(T, d)
+            got = y.detach().cpu().reshape(T, d)
+            rel = ((got - want)[same].abs().max() / want.abs().max()).item()
+            row["card_vs_cpu_rel"] = rel
+            if not rel <= MOE_RTOL:
+                raise AssertionError(f"moe fp32 card vs CPU: {rel}")
+        else:
+            with torch.no_grad():
+                row["fwd_ms"] = call_ms(lambda: moe_lib.moe_apply(
+                    params, x, cfg), calls=5)
+                buf = torch.randn((E, cap, d), generator=gen, device="cuda"
+                                  ).to(x.dtype)
+                hid = torch.randn((E, cap, base.moe.d_expert), generator=gen,
+                                  device="cuda").to(x.dtype)
+                row["expert_gemms_ms"] = device_ms(lambda: (
+                    torch.bmm(buf, params["wi"]), torch.bmm(buf, params["wg"]),
+                    torch.bmm(hid, params["wo"])), calls=5, replays=4)
+            row["fwd_bwd_ms"] = call_ms(lambda: torch.autograd.grad(
+                (moe_lib.moe_apply(unflatten(zip(paths, leaves)), xg,
+                                   cfg)[0].float() * g).sum(), leaves + [xg]),
+                calls=5)
+        report[dtype] = row
+        del params, x, g, leaves, xg, y, grads, again, cpu_params, xc
+        torch.cuda.empty_cache()
+    _say("moe", card=card, arch=GRANITE, tokens=T, d_model=d, experts=E,
+         top_k=k, d_expert=base.moe.d_expert, capacity=cap,
+         near_tie=MOE_NEAR_TIE, rtol=MOE_RTOL, **report)
+    return report
+
+
+def granite(card: str):
+    """Phases 9 and 10: one granite MoE layer; granite's training from a
+    lake of Zipf tokens, then the trace of one of its steps by group."""
+    moe_layer(card)
+    lake = zipf_lake(GRANITE_JOB, get_arch(GRANITE).vocab_size)
+    trainer, state, batch, _ = train(card, GRANITE_JOB, "train_granite", lake)
+    trace_train(trainer, state, batch, card, "trace_train_granite",
+                groups=True)
 
 
 # ----------------------------------------------------------------- phase 8
@@ -1505,13 +1789,16 @@ def main() -> None:
     torch.cuda.empty_cache()
     zamba2_train = zamba2(card, ssd_zamba2)
     torch.cuda.empty_cache()
-    for arch in ("mamba2-1.3b", "zamba2-2.7b"):
+    granite(card)
+    torch.cuda.empty_cache()
+    for arch in ("mamba2-1.3b", "zamba2-2.7b", GRANITE):
         serve(card, arch)
         torch.cuda.empty_cache()
     decode_rows = [timings(*shape, card=card) for shape in DECODE_TIMED]
     serving = decode_rows[0]          # the served cache, T=64
     training = flash_timings(4, 1024, card)
     long_train = flash_timings(4, 4096, card)
+    granite_train = flash_timings(**FLASH_GRANITE, card=card)
     flash_entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -1524,6 +1811,7 @@ def main() -> None:
         "training_shape": training,
         "long_shape": long_train,
         "zamba2_shape": zamba2_train,
+        "granite_shape": granite_train,
     }
     entry = {
         "name": "decode_attention",

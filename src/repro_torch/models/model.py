@@ -5,11 +5,16 @@ Carried through ``loss_fn`` and ``decode_step``:
 
     dense   - starcoder2 / qwen2 / gemma / gemma3 / musicgen / phi3v backbones
               (with the audio and vlm families)
+    moe     - granite (GQA + 32 routed experts); with GQA attention, also
+              the sigmoid router, shared experts and leading dense layers
+              of deepseek-v3
     ssm     - mamba2 (attention-free SSD, through the ssd-scan kernel)
     hybrid  - zamba2 (mamba2 backbone + one SHARED GQA block every N layers)
 
-The moe family raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+MLA attention (deepseek-v3's) raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.  The moe family's ``loss_fn`` adds 0.01 times
+the load-balance loss summed over the MoE layers, as JAX's does, and
+reports it as ``metrics["aux"]``.
 
 Parameters are a nested dict of tensors with the JAX package's paths
 (``blocks/attn/wq``), stacked with a leading layer axis as there; a Python
@@ -38,14 +43,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
+from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embed, maybe_remat, mlp, mlp_specs, rmsnorm,
                      softmax_cross_entropy)
 from .param import ParamSpec, materialize
-
-_NOT_PORTED = {
-    "moe": "ROADMAP Queue 1 item 9 (MoE family)",
-}
 
 
 def _ln(d: int, stack: Tuple[int, ...] = ()) -> ParamSpec:
@@ -74,16 +76,14 @@ def _unbind(tree):
 
 class Model:
     def __init__(self, cfg: ModelConfig, attn_impl: str = "kernel") -> None:
-        if cfg.family in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family is not ported yet; see "
-                f"{_NOT_PORTED[cfg.family]}")
-        if cfg.family not in ("dense", "audio", "vlm", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "audio", "vlm", "moe", "ssm", "hybrid"):
             raise ValueError(cfg.family)
-        if cfg.family != "ssm" and cfg.attention != "gqa":
+        if cfg.family != "ssm" and cfg.attention != "gqa" or cfg.mtp_depth:
+            what = (f"{cfg.attention} attention" if cfg.attention != "gqa"
+                    else "multi-token prediction")
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.attention} attention is not ported yet; see "
-                "ROADMAP Queue 1 item 12 (MLA and MTP)")
+                f"{cfg.name}: {what} is not ported yet; see ROADMAP Queue 1 "
+                "item 12 (MLA and MTP)")
         self.cfg = cfg
         self.attn_impl = attn_impl
         if cfg.family == "hybrid":      # zamba2's shared attention block
@@ -101,6 +101,15 @@ class Model:
             "attn": attn.gqa_specs(cfg, stack),
             "ln2": _ln(cfg.d_model, stack),
             "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.dtype, stack),
+        }
+
+    def _moe_block_specs(self, stack):
+        cfg = self.cfg
+        return {
+            "ln1": _ln(cfg.d_model, stack),
+            "attn": attn.gqa_specs(cfg, stack),
+            "ln2": _ln(cfg.d_model, stack),
+            "moe": moe_lib.moe_specs(cfg, stack),
         }
 
     def _ssm_block_specs(self, stack):
@@ -140,7 +149,12 @@ class Model:
             specs["img_proj"] = ParamSpec((1024, cfg.d_model), (None, "fsdp"),
                                           dtype=cfg.dtype)
         specs["final_ln"] = _ln(cfg.d_model)
-        if cfg.family == "ssm":
+        if cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            if nd:
+                specs["dense_blocks"] = self._dense_block_specs((nd,))
+            specs["moe_blocks"] = self._moe_block_specs((cfg.num_layers - nd,))
+        elif cfg.family == "ssm":
             specs["blocks"] = self._ssm_block_specs((cfg.num_layers,))
         elif cfg.family == "hybrid":
             P = cfg.hybrid.shared_attn_period
@@ -162,14 +176,21 @@ class Model:
                            dtype_override)
 
     # ------------------------------------------------------------- block fwd
-    def _dense_block(self, p, h, positions, kind: str):
+    def _dense_block(self, p, h, positions, kind: str, aux=None):
+        """-> (h, aux): a layer with ``"moe"`` adds its load-balance loss to
+        ``aux``; any other passes ``aux`` through."""
         cfg = self.cfg
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         h = h + attn.gqa_train(p["attn"], hn, positions, cfg, window=window,
                                impl=self.attn_impl)
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
-        return h + mlp(p["mlp"], hn, cfg.mlp)
+        if "moe" in p:
+            out, aux_i = moe_lib.moe_apply(p["moe"], hn, cfg)
+            aux = aux + aux_i
+        else:
+            out = mlp(p["mlp"], hn, cfg.mlp)
+        return h + out, aux
 
     def _ssm_block(self, p, h):
         hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
@@ -212,6 +233,8 @@ class Model:
     def backbone(self, params, h, positions):
         """Token embeddings -> final hidden states."""
         cfg = self.cfg
+        if cfg.family == "moe":
+            return self._moe_backbone(params, h, positions)[0]
         if cfg.family == "ssm":
             body = maybe_remat(lambda hh, p: self._ssm_block(p, hh), cfg.remat)
             for p in _unbind(params["blocks"]):
@@ -235,7 +258,7 @@ class Model:
 
             def period_body(hh, p):
                 for layer, kind in zip(_unbind(p), pat):
-                    hh = self._dense_block(layer, hh, positions, kind)
+                    hh = self._dense_block(layer, hh, positions, kind)[0]
                 return hh
 
             body = maybe_remat(period_body, cfg.remat)
@@ -243,17 +266,31 @@ class Model:
                 h = body(h, p)
             if "tail" in params:
                 tail_body = maybe_remat(
-                    lambda hh, p: self._dense_block(p, hh, positions, pat[0]),
+                    lambda hh, p: self._dense_block(p, hh, positions,
+                                                    pat[0])[0],
                     cfg.remat)
                 for p in _unbind(params["tail"]):
                     h = tail_body(h, p)
             return h
         kind = "L" if cfg.sliding_window else "G"
         body = maybe_remat(
-            lambda hh, p: self._dense_block(p, hh, positions, kind), cfg.remat)
+            lambda hh, p: self._dense_block(p, hh, positions, kind)[0],
+            cfg.remat)
         for p in _unbind(params["blocks"]):
             h = body(h, p)
         return h
+
+    def _moe_backbone(self, params, h, positions):
+        """The moe family's layers: the leading dense ones, then the MoE
+        ones, each under ``maybe_remat``.  -> (h, aux summed over layers)."""
+        body = maybe_remat(
+            lambda hh, aux, p: self._dense_block(p, hh, positions, "G", aux),
+            self.cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for name in ("dense_blocks", "moe_blocks"):
+            for p in (_unbind(params[name]) if name in params else ()):
+                h, aux = body(h, aux, p)
+        return h, aux
 
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch):
@@ -266,7 +303,10 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         h = self._embed_tokens(params, batch)
-        h = self.backbone(params, h, positions)
+        if cfg.family == "moe":
+            h, aux = self._moe_backbone(params, h, positions)
+        else:
+            h = self.backbone(params, h, positions)
         h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
         logits = self._logits(params, h)
         targets = batch["targets"]
@@ -277,7 +317,10 @@ class Model:
             ce = softmax_cross_entropy(logits, t, m)
         else:
             ce = softmax_cross_entropy(logits, targets, mask)
-        return ce, {"ce": ce, "loss": ce}
+        if cfg.family != "moe":
+            return ce, {"ce": ce, "loss": ce}
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux, "loss": loss}
 
     # ---------------------------------------------------------------- caches
     def cache_specs(self, batch: int, max_len: int):
@@ -295,6 +338,12 @@ class Model:
             return {"k": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype),
                     "v": ParamSpec(shape, axes, init="zeros", dtype=cfg.dtype)}
 
+        if cfg.family == "moe":
+            nd = cfg.moe.first_dense_layers
+            out = {"moe_layers": kv((cfg.num_layers - nd,), max_len)}
+            if nd:
+                out["dense_layers"] = kv((nd,), max_len)
+            return out
         W = min(cfg.sliding_window or max_len, max_len)
         if cfg.local_global_pattern:
             pat = cfg.local_global_pattern
@@ -382,6 +431,8 @@ class Model:
                                     window=window, impl=self.attn_impl)
         h = h + a
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+        if "moe" in p:
+            return h + moe_lib.moe_apply(p["moe"], hn, cfg)[0]
         return h + mlp(p["mlp"], hn, cfg.mlp)
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int, *,
@@ -408,6 +459,15 @@ class Model:
                                    cache["state"][i], cache["conv"][i])
         elif cfg.family == "hybrid":
             h = self._decode_hybrid(params, cache, h, pos)
+        elif cfg.family == "moe":
+            for blocks, layers in (("dense_blocks", "dense_layers"),
+                                   ("moe_blocks", "moe_layers")):
+                if blocks not in params:
+                    continue
+                kv = cache[layers]
+                for i in range(kv["k"].shape[0]):
+                    h = self._dense_step(_index(params[blocks], i), h,
+                                         kv["k"][i], kv["v"][i], pos, "G")
         elif cfg.local_global_pattern:
             h = self._decode_pattern(params, cache, h, pos)
         else:

@@ -21,7 +21,7 @@ from repro_torch.models import (ParamSpec, abstract, build_model, count_params,
 
 PORTED_ARCHS = ["starcoder2-3b", "qwen2-72b", "gemma-2b", "gemma3-27b",
                 "musicgen-medium", "phi-3-vision-4.2b", "mamba2-1.3b",
-                "zamba2-2.7b"]
+                "zamba2-2.7b", "granite-moe-1b-a400m"]
 
 
 @pytest.mark.parametrize("arch", sorted(JAX_ARCHS))

@@ -161,7 +161,6 @@ def test_temperature_sampling_is_seeded_and_in_vocab():
 def test_model_axis_and_unported_families_raise():
     with pytest.raises(NotImplementedError, match="distribution"):
         Server(ServeJob(model_axis=2), device="cpu")
-    for arch, item in [("granite-moe-1b-a400m", "item 9"),
-                       ("deepseek-v3-671b", "item 9")]:
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(get_arch(arch))
+    assert build_model(get_arch("granite-moe-1b-a400m")).cfg.family == "moe"
+    with pytest.raises(NotImplementedError, match="item 12"):
+        build_model(get_arch("deepseek-v3-671b"))

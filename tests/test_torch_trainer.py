@@ -2,9 +2,9 @@
 tests (``tests/test_distributed_system.py::test_trainer_*``), on
 ``device="cpu"``.
 
-The third JAX test trains granite's MoE smoke config; the MoE family is not
-ported yet (ROADMAP Queue 1 item 9), so its port runs gemma-2b's smoke config
-through the same TQL filter and gradient compression.
+The third JAX test trains granite's MoE smoke config; its port trains it
+too, and gemma-2b's smoke config through the same TQL filter and gradient
+compression.
 """
 
 import dataclasses
@@ -50,8 +50,9 @@ def test_trainer_restores_after_failure():
     assert first_resumed >= 4           # at most checkpoint_every recomputed
 
 
-def test_trainer_with_tql_filter_and_compression():
-    job = TrainJob(arch="gemma-2b", steps=4, global_batch=2,
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "gemma-2b"])
+def test_trainer_with_tql_filter_and_compression(arch):
+    job = TrainJob(arch=arch, steps=4, global_batch=2,
                    seq_len=64, grad_compress=True, num_docs=12,
                    tql_filter="SELECT * FROM dataset WHERE doc_id % 2 == 0",
                    log_every=100, device="cpu")
