@@ -25,7 +25,9 @@ code is not 0:
    gemma-2b's training shape (B=4, S=1024, H=8, Hkv=1, D=256), ragged S,
    starcoder2's and gemma3's sliding windows, D of 32, 40, 96 and 128, G of
    1, 2 and 8, zamba2's shared block (D=80), granite-moe-1b-a400m's training
-   shape (B=4, S=1024, H=16, Hkv=8, D=64); the profiler's kernel names show
+   shape (B=4, S=1024, H=16, Hkv=8, D=64), MLA's training shape at full
+   deepseek-v3 width (B=4, S=1024, H=Hkv=128, D=192: V padded to the QK
+   dim); the profiler's kernel names show
    each bf16 case on the tensor-core kernel and each fp32 case on the
    CUDA-core one; and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
@@ -45,6 +47,21 @@ code is not 0:
    mod 16, an odd w*C, C of 4 and of 7 and 64 (above the kernel's table), one
    row and a row of 4350 elements, within 1e-6; and the inputs its wrapper
    must refuse;
+2a. deepseek: full-width deepseek-v3-671b (d 7168, 128 heads of MLA, 256
+   routed experts and one shared, MTP depth 1), its depth cut inside the
+   script after each entry point is built (the full 61 layers fit no card),
+   run before the phases that grow the host's memory, with the process's
+   resident memory printed around it.  ``[serve_deepseek]``: phase 3's
+   ``serve`` at depth 4 (the 3 leading dense layers and 1 MoE layer), with
+   no decode-kernel launch (MLA decodes in plain ops over its latent cache,
+   as in JAX); ``[mla_decode_vs_forward]``: at depth 3 (no MoE layer), the
+   absorbed decode logits at 64 positions against the train forward's
+   through ``mla_train``, within 2e-2 in fp32 (bf16 reported);
+   ``[grad_deepseek]``: one loss and gradient of the depth-4 model with MTP
+   on 1 x 1024 tokens, finite, with ce, aux and mtp; ``[train_deepseek]``:
+   phase 4's gates at depth 3 plus MTP (8 steps of 4 x 1024 Zipf tokens,
+   bf16 AdamW moments, a checkpoint of 25.7 GB restored bit for bit) and
+   ``mtp`` at each step, then the trace of one step by group;
 2b. image feed: a lake of 2048 random 250 x 250 x 3 images, queried on the
    card with the torch TQL engine (a WHERE and its top-k form, each equal to
    the numpy engine's), streamed through the loader and ``DeviceFeeder`` as
@@ -118,7 +135,10 @@ code is not 0:
    over a rotation of 5 batches, the ms of a call, and the 3.1 GB case); a
    ``[bound]`` line for each timed shape with the bytes and operations its
    bound comes from; decode and flash also at granite's served and
-   training shapes (H=16, Hkv=8, D=64); and the script's total time.
+   training shapes (H=16, Hkv=8, D=64); yardsticks for MLA, which runs no
+   kernel: flash at MLA's training shape beside SDPA and the port's plain
+   ``blockwise_attention``, and one absorbed ``mla_decode`` layer at B=4,
+   T=32768 beside its byte bound; and the script's total time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -126,8 +146,10 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -166,6 +188,7 @@ from repro_torch.kernels.fused_preprocess import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     ops as ssd_ops, ref_ssd, ssd)
 import repro_torch.launch.steps as steps_lib  # noqa: E402
+import repro_torch.models.attention as attn_lib  # noqa: E402
 import repro_torch.models.model as model_lib  # noqa: E402
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
 from repro_torch.launch.steps import train_state_specs  # noqa: E402
@@ -174,7 +197,7 @@ from repro_torch.models import abstract, build_model, named_leaves  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models.layers import rmsnorm  # noqa: E402
 from repro_torch.models.param import (  # noqa: E402
-    materialize, torch_dtype, tree_map, unflatten)
+    count_params, materialize, torch_dtype, tree_map, unflatten)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
 
@@ -199,6 +222,22 @@ GRANITE = "granite-moe-1b-a400m"
 GRANITE_JOB = TrainJob(arch=GRANITE, smoke=False, steps=8, global_batch=4,
                        seq_len=1024, warmup=2, num_docs=16, checkpoint_every=8,
                        log_every=1)
+# the deepseek phases: full-width deepseek-v3-671b, its depth cut in the
+# script (the 671B tree fits no card): serving and one gradient at depth 4,
+# the 3 leading dense layers and 1 MoE layer (31.6 GB of bf16 params); the
+# decode check and training at depth 3, no MoE layer (AdamW's state of one
+# MoE layer alone is ~92 GB): 8 steps of 4 x 1024 Zipf tokens.  AdamW moves
+# each weight by about lr a step, so a d-wide product's output by about
+# lr * d of its scale: the other phases' 3e-4 is 0.31 of it at granite's
+# d of 1024, 2.2 at deepseek's 7168, where the loss went 15.8 -> 37.9 ->
+# 15.7 in 8 steps; so lr is scaled by 1024 / 7168 to granite's 0.31
+DEEPSEEK = "deepseek-v3-671b"
+DEEPSEEK_SERVE_LAYERS = 4
+DEEPSEEK_TRAIN_LAYERS = 3
+DEEPSEEK_JOB = TrainJob(arch=DEEPSEEK, smoke=False, steps=8, global_batch=4,
+                        seq_len=1024, lr=3e-4 * 1024 / 7168, warmup=2,
+                        num_docs=16, checkpoint_every=8, log_every=1)
+DEEPSEEK_GRAD_TOKENS = (1, 1024)   # the [grad_deepseek] batch
 MOE_RTOL = 1e-4           # the [moe] phase: fp32 card against the CPU
 # a token whose k-th and (k+1)-th router probabilities lie closer than this
 # share of the k-th may choose another expert on another device: fp32
@@ -250,6 +289,12 @@ FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
 # granite-moe-1b-a400m's training shape (G=2, D=64)
 FLASH_GRANITE = dict(B=4, S=1024, H=16, Hkv=8, D=64)
+# MLA's training shape at deepseek-v3's widths: 128 heads, QK dim 128 + 64,
+# V padded up to it; timed as a yardstick (MLA trains through the plain
+# blockwise_attention, as in JAX)
+FLASH_MLA = dict(B=4, S=1024, H=128, Hkv=128, D=192)
+# one absorbed MLA decode layer timed as a yardstick: batch 4, a 32k cache
+MLA_DECODE = dict(B=4, T=32768)
 
 # the decode and flash kernels each input dtype runs, as the profiler names
 # them (a decode call of more than one split also runs the combine)
@@ -333,9 +378,10 @@ def _say(tag: str, **fields) -> None:
 
 
 def _attention_layers(cfg) -> int:
-    """Attention layers a token passes: every layer of a dense model, none
-    in mamba2, zamba2's shared block once per period."""
-    if cfg.family == "ssm":
+    """Attention layers a token passes through a kernel: every layer of a
+    dense model, none in mamba2 or with MLA (plain ops, as in JAX),
+    zamba2's shared block once per period."""
+    if cfg.family == "ssm" or cfg.attention == "mla":
         return 0
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.hybrid.shared_attn_period
@@ -501,7 +547,8 @@ def flash_vs_plain():
         half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
         route, ran = FLASH_ROUTES[dtype], set()
         for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER \
-                + [tuple(FLASH_GRANITE.values()) + (0,)]:
+                + [tuple(FLASH_GRANITE.values()) + (0,),
+                   tuple(FLASH_MLA.values()) + (0,)]:
             q, k, v = _flash_inputs(B, S, H, Hkv, D, dtype)
             got, names = _profiled(
                 lambda: flash_attention(q, k, v, window=window), "flash_fwd")
@@ -896,19 +943,57 @@ def image_feed(card: str):
 
 
 # ----------------------------------------------------------------- phase 3
-def serve(card: str, arch: str):
-    """``Server.generate`` on full-width ``arch``: batch 4, 32 prompt + 32
-    new tokens, greedy; the output is checked, a second server gives the
-    same tokens, and the decode kernel is launched once per attention layer
-    and token.  Then the family's comparison: for a model with attention,
-    the served positions through the decode kernel and through plain
-    attention (held in the served dtype for gemma-2b, in fp32 for zamba2);
-    for mamba2, which decodes through no kernel, its decode logits against
-    the train forward's through the ssd kernel."""
+def _server(job: ServeJob, layers=None, params=None) -> Server:
+    """A ``Server`` for ``job``.  With ``layers``, its model is cut to the
+    first ``layers`` layers after construction, as ``examples/train_lm.py``
+    overrides a job's config, and it is given params drawn for the cut model
+    from the job's seed (or ``params``), so that it draws no full-depth
+    tree."""
+    if layers is None:
+        return Server(job, params=params)
+    cfg = get_arch(job.arch).with_(num_layers=layers)
+    if params is None:
+        params = build_model(cfg).init(
+            torch.Generator("cuda").manual_seed(job.seed), "cuda")
+    srv = Server(job, params=params)
+    srv.cfg, srv.model = cfg, build_model(cfg)
+    return srv
+
+
+def _cut_trainer(trainer: Trainer, layers: int) -> None:
+    """The trainer's model cut to its first ``layers`` layers after
+    construction, before it draws any params."""
+    job = trainer.job
+    trainer.cfg = trainer.cfg.with_(num_layers=layers)
+    trainer.model = build_model(trainer.cfg)
+    trainer.step_fn = steps_lib.make_train_step(
+        trainer.model, trainer.opt, microbatches=job.microbatches,
+        grad_compress=job.grad_compress)
+
+
+def _reduced(cfg) -> dict:
+    """The depth cut of ``cfg`` against its published config, for a phase's
+    line (the script cuts nothing else)."""
+    full = get_arch(cfg.name).num_layers
+    return {"num_layers": [full, cfg.num_layers]} \
+        if full != cfg.num_layers else {}
+
+
+def serve(card: str, arch: str, layers=None, tag: str = "serve"):
+    """``Server.generate`` on full-width ``arch`` (its depth cut to
+    ``layers`` if given): batch 4, 32 prompt + 32 new tokens, greedy; the
+    output is checked, a second server gives the same tokens, and the decode
+    kernel is launched once per attention layer and token that goes through
+    it (never with MLA).  Then the family's comparison: for a model with
+    GQA attention, the served positions through the decode kernel and
+    through plain attention (held in the served dtype for gemma-2b, in fp32
+    for zamba2 and granite); for mamba2, which decodes through no kernel,
+    its decode logits against the train forward's through the ssd kernel;
+    MLA's comparison is ``mla_decode_vs_forward``."""
     job = ServeJob(arch=arch, smoke=False, batch=4, prompt_len=32,
                    max_new_tokens=32)
     torch.cuda.reset_peak_memory_stats()
-    srv = Server(job)
+    srv = _server(job, layers)
     cfg = srv.cfg
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (job.batch, job.prompt_len)).astype(np.int32)
@@ -928,7 +1013,7 @@ def serve(card: str, arch: str):
                   arch)
     first = dict(srv.stats, tokens_per_s=srv.throughput())
 
-    again = Server(job)
+    again = _server(job, layers, srv.params if layers else None)
     if not np.array_equal(out, again.generate(prompts)):
         raise AssertionError(f"{arch}: a second Server gave other tokens")
     second = dict(again.stats, tokens_per_s=again.throughput())
@@ -937,11 +1022,14 @@ def serve(card: str, arch: str):
     if cfg.family == "ssm":
         check = "decode vs the train forward through the ssd kernel"
         rel, steps = _decode_vs_forward(srv, 512), 512
+    elif cfg.attention == "mla":
+        check, rel, steps = "in [mla_decode_vs_forward]", None, None
     else:
         check = "decode kernel vs torch attention"
         held = cfg.dtype if cfg.family == "dense" else "float32"
         rel, steps = _decode_kernel_vs_torch(srv, out, held), total
-    _say("serve", card=card, arch=cfg.name, layers=cfg.num_layers,
+    _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
+         reduced=_reduced(cfg),
          d_model=cfg.d_model, batch=job.batch, prompt_len=job.prompt_len,
          new_tokens=job.max_new_tokens, launches=counts,
          first_server=first, second_server=second, check=check,
@@ -956,10 +1044,13 @@ def _decode_kernel_vs_torch(srv, out, held: str) -> dict:
     length, through the decode kernel and through plain attention: the
     largest difference over the vocabulary's real slots relative to the
     largest logit, in the served dtype and in ``held`` (the served weights
-    cast to fp32 for "float32").  Held at ``DECODE_RTOL`` in ``held`` only:
-    zamba2's 54 mamba layers of random weights carry bf16's rounding of the
-    attention output forward to several times that, where gemma-2b's 18
-    dense layers do not, so zamba2 is held in fp32 and its bf16 reported."""
+    cast to fp32 for "float32").  Held at ``DECODE_RTOL`` in ``held`` only,
+    which ``serve`` makes fp32 for every family but dense: zamba2's 54 mamba
+    layers of random weights carry bf16's rounding of the attention output
+    forward to several times that, and in granite a bf16 rounding can flip
+    an expert choice downstream (``PERF.md`` §7: JAX's two impls differ as
+    much), where gemma-2b's 18 dense layers do neither; so gemma-2b is held
+    in bf16, the others in fp32 with their bf16 reported."""
     cfg = srv.cfg
     rels = {}
     for dtype in dict.fromkeys((held, cfg.dtype)):
@@ -1061,13 +1152,28 @@ class _TimedCheckpoints(CheckpointManager):
         self.write_s = time.perf_counter() - t0
 
 
-def loss_and_grad_norm(model, params, batch):
+def _loss_and_grads(model, params, batch):
+    """(loss, metrics, gradients of every leaf; zeros for a leaf the loss
+    does not reach, as ``make_train_step`` gives them)."""
     paths, leaves = zip(*named_leaves(params))
     leaves = [p.detach().requires_grad_() for p in leaves]
-    loss, _ = model.loss_fn(unflatten(zip(paths, leaves)), batch)
-    grads = torch.autograd.grad(loss, leaves)
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-    return loss.item(), norm.item()
+    loss, metrics = model.loss_fn(unflatten(zip(paths, leaves)), batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
+    return loss, metrics, grads
+
+
+def _grad_norm(grads, chunk: int = 1 << 26) -> float:
+    """The global norm in fp32, over pieces of at most ``chunk`` elements:
+    one MoE layer's expert gradients are 3.8e9 elements a leaf, whose fp32
+    square would not fit beside the gradients."""
+    return math.sqrt(sum(piece.float().square().sum().item() for g in grads
+                         for piece in g.reshape(-1).split(chunk)))
+
+
+def loss_and_grad_norm(model, params, batch):
+    loss, _, grads = _loss_and_grads(model, params, batch)
+    return loss.item(), _grad_norm(grads)
 
 
 def train_launches(cfg, steps: int) -> dict:
@@ -1101,15 +1207,29 @@ def zipf_lake(job: TrainJob, vocab_size: int, a: float = 1.2) -> Dataset:
 
 
 def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
-          data_ds=None):
+          data_ds=None, layers=None):
+    """``Trainer.run`` on ``job`` (its model cut to ``layers`` layers if
+    given), then its gates: finite, falling losses; exact launch counts; a
+    checkpoint restored bit for bit; one batch's loss and gradient norm
+    through the kernels and the plain impls within ``TRAIN_RTOL``."""
     torch.cuda.reset_peak_memory_stats()
     ckpt = _TimedCheckpoints(MemoryProvider(), keep=job.keep_checkpoints)
     trainer = Trainer(job, ckpt=ckpt, data_ds=data_ds)
+    if layers is not None:
+        _cut_trainer(trainer, layers)
     cfg = trainer.cfg
+    step_fn, per_step = trainer.step_fn, []
+
+    def recorded(state, batch):     # each step's metrics, read as the
+        state, metrics = step_fn(state, batch)     # trainer reads its loss
+        per_step.append({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+    trainer.step_fn = recorded
 
     _reset_counts()
     out = trainer.run(restore=False)
     counts = _counts()
+    trainer.step_fn = step_fn
 
     losses = [h["loss"] for h in out["history"]]
     if len(losses) != job.steps or not all(math.isfinite(x) for x in losses):
@@ -1151,12 +1271,14 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
     if cfg.moe is not None:        # the load-balance loss of that batch
         with torch.no_grad():
             metrics = trainer.model.loss_fn(state["params"], batch)[1]
-        extra = {"aux": metrics["aux"].item(), "ce": metrics["ce"].item()}
+        extra = {k: metrics[k].item() for k in ("aux", "ce", "mtp")
+                 if k in metrics}
 
     step_s = statistics.median(h["sec"] for h in out["history"][1:])
     tokens = job.global_batch * job.seq_len
     _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
-         d_model=cfg.d_model, dtype=cfg.dtype, remat=cfg.remat,
+         reduced=_reduced(cfg), d_model=cfg.d_model, dtype=cfg.dtype,
+         remat=cfg.remat, moment_dtype=trainer.opt.moment_dtype,
          batch=job.global_batch, seq_len=job.seq_len, steps=job.steps,
          warmup=job.warmup, lr=job.lr, launches=counts,
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
@@ -1165,7 +1287,8 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
          state_gb=state_gb, save_s=ckpt.copy_s + ckpt.write_s,
          save_copy_s=ckpt.copy_s, save_write_s=ckpt.write_s,
          restore_s=restore_s, host_peak_gb=host_peak_gb,
-         kernel_vs_torch=compare, kernel_vs_torch_rel=rel, **extra)
+         kernel_vs_torch=compare, kernel_vs_torch_rel=rel,
+         metrics_by_step=per_step, **extra)
     return trainer, state, batch, counts
 
 
@@ -1293,17 +1416,20 @@ def trace_train(trainer, state, batch, card: str, tag: str = "trace_train",
 # the groups of a step's device time, each kernel by the code that launched
 # it (for a backward kernel, the forward op its autograd node came from):
 # "dispatch" is the rest of ``moe_apply`` (router, top-k, sort, gathers,
-# the buffer's scatter, SiLU-GLU, combine), "other" the rest of the model
-# (norms, rope, residuals, embeddings, copies)
-TRACE_GROUPS = ("flash", "attention backward (plain)", "expert GEMMs",
-                "dispatch", "logits and loss", "optimizer", "other GEMMs",
-                "other", "unattributed")
+# the buffer's scatter, SiLU-GLU, combine), "MLA attention (plain)" all of
+# ``mla_train`` (its projections and the blockwise attention, forward and
+# backward), "MTP" all of ``_mtp_loss`` (its block, logits and loss), "other"
+# the rest of the model (norms, rope, residuals, embeddings, copies)
+TRACE_GROUPS = ("flash", "attention backward (plain)", "MLA attention (plain)",
+                "MTP", "expert GEMMs", "dispatch", "logits and loss",
+                "optimizer", "other GEMMs", "other", "unattributed")
 # the functions a grouped trace marks with a profiler range of their name
 # (``scope:<name>``), for the time of the trace
 TRACE_SCOPES = ((moe_lib, "moe_apply"), (model_lib.Model, "_dense_block"),
                 (model_lib.Model, "_logits"),
                 (model_lib, "softmax_cross_entropy"), (AdamW, "update"),
-                (steps_lib, "apply_updates"))
+                (steps_lib, "apply_updates"), (attn_lib, "mla_train"),
+                (model_lib.Model, "_mtp_loss"))
 
 
 @contextlib.contextmanager
@@ -1353,8 +1479,12 @@ def _trace_group(kernel: str, names: list) -> str:
         return "attention backward (plain)"
     if "scope:update" in names or "scope:apply_updates" in names:
         return "optimizer"
+    if "scope:_mtp_loss" in names:
+        return "MTP"
     if "scope:moe_apply" in names:
         return "expert GEMMs" if "aten::bmm" in names else "dispatch"
+    if "scope:mla_train" in names:
+        return "MLA attention (plain)"
     if "scope:_logits" in names or "scope:softmax_cross_entropy" in names:
         return "logits and loss"
     gemm = any(part in kernel.lower() for part in ("gemm", "nvjet", "xmma"))
@@ -1363,13 +1493,18 @@ def _trace_group(kernel: str, names: list) -> str:
 
 def device_ms_by_group(fn, calls: int) -> dict:
     """Device ms a call of ``fn`` by ``TRACE_GROUPS``, from a
-    ``torch.profiler`` trace with ``TRACE_SCOPES`` marked: a kernel goes to
-    the group of the ranges around the op that launched it.  An op the
-    autograd engine runs for a node takes the ranges around the node's
-    forward op (matched by thread and sequence number); code that runs
-    inside a node in ranges of its own (a block's recompute under remat)
-    keeps its own.  Kernels the profiler ties to no op are
-    ``unattributed``."""
+    ``torch.profiler`` trace with ``TRACE_SCOPES`` marked: each kernel (and
+    copy or memset) on the device goes to the group of the ranges around
+    the op that launched it, found through the runtime call that launched
+    it (the same CUDA correlation id) and the ops around that call on its
+    thread.  An op the autograd engine runs for a node takes the ranges
+    around the node's forward op (matched by thread and sequence number);
+    code that runs inside a node in ranges of its own (a block's recompute
+    under remat) keeps its own.  Kernels whose launch lies in no op are
+    ``unattributed``.  Each device event counts once, so the groups sum to
+    the busy time; the profiler's lists of kernels by op would count a
+    launch twice where two events share an id, as its "Command Buffer Full"
+    markers do with ops while the launch queue is full."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1380,20 +1515,26 @@ def device_ms_by_group(fn, calls: int) -> dict:
         torch.cuda.synchronize()
     events = prof.events()
     around = _enclosing(events)
-    forward = {}
+    forward, launched_by = {}, {}
     for e in events:
-        if e.sequence_nr >= 0 and id(e) in around and \
+        if id(e) not in around:
+            continue
+        if e.name.startswith("cu"):     # a runtime call: cudaLaunchKernel, ...
+            launched_by.setdefault(e.id, e)
+        elif e.sequence_nr >= 0 and \
                 not e.name.startswith("autograd::engine"):
             forward.setdefault((e.thread, e.sequence_nr), e)
     ms = dict.fromkeys(TRACE_GROUPS, 0.0)
     busy = 0.0
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and \
-                not e.is_user_annotation:
-            busy += e.self_device_time_total / 1e3
-        if id(e) not in around or not e.kernels:
+    for k in events:
+        if k.device_type != torch.autograd.DeviceType.CUDA or \
+                k.is_user_annotation:
             continue
-        chain = around[id(e)]
+        busy += k.self_device_time_total / 1e3
+        call = launched_by.get(k.id)
+        chain = around[id(call)][1:] if call is not None else []
+        if not chain:
+            continue
         at = next((i for i, n in enumerate(chain) if n.name.startswith(
             "autograd::engine::evaluate_function")), len(chain))
         names = [n.name for n in chain[:at]]
@@ -1403,8 +1544,7 @@ def device_ms_by_group(fn, calls: int) -> dict:
             key = (node.fwd_thread, node.sequence_nr)
             if key in forward:
                 names += [n.name for n in around[id(forward[key])]]
-        for k in e.kernels:
-            ms[_trace_group(k.name, names)] += k.duration / 1e3
+        ms[_trace_group(k.name, names)] += k.self_device_time_total / 1e3
     ms["unattributed"] = busy - sum(ms.values())
     return {"calls": calls, "device_busy_ms": busy / calls,
             **{g: v / calls for g, v in ms.items()}}
@@ -1530,6 +1670,127 @@ def granite(card: str):
     trainer, state, batch, _ = train(card, GRANITE_JOB, "train_granite", lake)
     trace_train(trainer, state, batch, card, "trace_train_granite",
                 groups=True)
+
+
+# ------------------------------------------------------------ deepseek-v3
+def _vm_rss_gb() -> float:
+    """The process's resident memory now (``VmRSS``), in GB."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def mla_decode_vs_forward(card: str, srv, steps: int = 64) -> dict:
+    """tests/test_models.py's rule at full width: deepseek-v3 cut to its 3
+    dense layers (no MoE layer, so no capacity question), the served
+    weights; the absorbed decode logits of each of ``steps`` positions
+    against the train forward's, which runs through ``mla_train``, as the
+    largest difference over the vocabulary's real slots relative to the
+    largest logit.  Held at ``DECODE_RTOL`` in fp32 (the weights cast up),
+    reported in the served bf16.  No kernel is launched."""
+    cfg = srv.cfg.with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
+    V, B = cfg.vocab_size, 2
+    served = {k: v for k, v in srv.params.items()
+              if k not in ("moe_blocks", "mtp")}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, V, (B, steps))).to("cuda")
+    positions = torch.arange(steps, device="cuda").expand(B, steps)
+    out = {}
+    _reset_counts()
+    for dtype in ("float32", cfg.dtype):
+        params = (served if dtype == cfg.dtype
+                  else tree_map(lambda p: p.float(), served))
+        model = build_model(cfg.with_(dtype=dtype))
+        head = model.logits_weight(params)
+        with torch.inference_mode():
+            h = model._embed_tokens(params, {"tokens": tokens})
+            h = model.backbone(params, h, positions)
+            fwd = model._logits(params, rmsnorm(params["final_ln"], h,
+                                                cfg.norm_eps), head)[..., :V]
+            cache = model.init_cache(B, steps, "cuda")
+            rel = []
+            for t in range(steps):
+                got, cache = model.decode_step(params, cache, tokens[:, t], t,
+                                               head=head)
+                got, want = got[:, :V], fwd[:, t]
+                if not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"non-finite MLA decode logits at {t}")
+                rel.append(((got - want).abs().max()
+                            / want.abs().max()).item())
+        out[dtype] = {"max": max(rel), "argmax": int(np.argmax(rel)),
+                      "at": {t: rel[t] for t in (0, 1, steps // 2, steps - 1)}}
+        del params, head, h, fwd, cache
+    _check_counts(_counts(), {}, "MLA decode and forward")
+    if not out["float32"]["max"] < DECODE_RTOL:
+        raise AssertionError(f"MLA decode vs forward: {out}")
+    _say("mla_decode_vs_forward", card=card, arch=cfg.name,
+         layers=cfg.num_layers, reduced=_reduced(cfg), batch=B, steps=steps,
+         rtol=DECODE_RTOL, held="float32", **out)
+    return out
+
+
+def grad_deepseek(card: str, srv) -> dict:
+    """One loss and gradient of the served depth-4 deepseek-v3 (3 dense
+    layers, 1 MoE layer, MTP) on ``DEEPSEEK_GRAD_TOKENS`` random tokens, the
+    server's fp32 head freed first: finite, with ce, aux and mtp, the
+    gradient norm and the card's peak memory.  No kernel is launched."""
+    cfg, params = srv.cfg, srv.params
+    srv.head = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = DEEPSEEK_GRAD_TOKENS
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to("cuda")
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
+    _reset_counts()
+    t0 = time.perf_counter()
+    loss, metrics, grads = _loss_and_grads(build_model(cfg), params, batch)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    _check_counts(_counts(), {}, "deepseek loss and gradient")
+    norm = _grad_norm(grads)
+    row = {k: v.item() for k, v in metrics.items()}
+    if not (math.isfinite(norm) and all(math.isfinite(v)
+                                        for v in row.values())):
+        raise AssertionError(f"deepseek loss or gradient not finite: {row}, "
+                             f"{norm}")
+    _say("grad_deepseek", card=card, arch=cfg.name, layers=cfg.num_layers,
+         reduced=_reduced(cfg), d_model=cfg.d_model, dtype=cfg.dtype,
+         remat=cfg.remat, batch=B, seq_len=S, **row, grad_norm=norm,
+         seconds=seconds, params=count_params(build_model(cfg).param_specs()),
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del grads
+    return row
+
+
+def deepseek(card: str):
+    """Phase 2a: deepseek-v3 served, checked, differentiated and trained at
+    full width with its depth cut; the process's resident memory before,
+    after, and after freed heap pages go back to the system."""
+    rss = {"before": _vm_rss_gb()}
+    torch.cuda.empty_cache()
+    srv = serve(card, DEEPSEEK, DEEPSEEK_SERVE_LAYERS, "serve_deepseek")[0]
+    mla_decode_vs_forward(card, srv)
+    grad_deepseek(card, srv)
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    lake = zipf_lake(DEEPSEEK_JOB, get_arch(DEEPSEEK).vocab_size)
+    trainer, state, batch, _ = train(card, DEEPSEEK_JOB, "train_deepseek",
+                                     lake, DEEPSEEK_TRAIN_LAYERS)
+    rss["after_train"] = _vm_rss_gb()
+    trace_train(trainer, state, batch, card, "trace_train_deepseek",
+                groups=True)
+    del trainer, state, batch, lake
+    gc.collect()
+    torch.cuda.empty_cache()
+    rss["after"] = _vm_rss_gb()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    rss["after_trim"] = _vm_rss_gb()
+    _say("deepseek_memory", card=card, vm_rss_gb=rss,
+         host_peak_gb=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6)
 
 
 # ----------------------------------------------------------------- phase 8
@@ -1662,6 +1923,59 @@ def flash_timings(B: int, S: int, card: str, H: int = GEMMA["H"],
     }
 
 
+def mla_timings(card: str) -> dict:
+    """Yardsticks for MLA, which runs no kernel (as in JAX): the flash
+    kernel at MLA's training shape (``FLASH_MLA``) beside SDPA and the
+    port's plain ``blockwise_attention``, which ``mla_train`` runs; and one
+    absorbed ``mla_decode`` layer at full deepseek-v3 width on a 32k cache
+    at its last position, against its byte bound: the latents and the
+    layer's weights read once (and, as ``latent_bound_ms``, the latents
+    alone)."""
+    flash = flash_timings(**FLASH_MLA, card=card)
+    q, k, v = _flash_inputs(*FLASH_MLA.values(), torch.bfloat16, seed=5)
+    scale = 1.0 / math.sqrt(FLASH_MLA["D"])
+    flash["blockwise_ms"] = device_ms(lambda: attn_lib.blockwise_attention(
+        q, k, v, scale=scale), calls=3, replays=3)
+    del q, k, v
+    cfg = get_arch(DEEPSEEK)
+    m, (B, T) = cfg.mla, MLA_DECODE.values()
+    gen = torch.Generator("cuda").manual_seed(5)
+    specs = attn_lib.mla_specs(cfg)
+    params = materialize(specs, gen, "cuda")
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ckv = torch.randn((B, T, m.kv_lora_rank), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    kr = torch.randn((B, T, m.rope_head_dim), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    latent_bytes = (ckv.numel() + kr.numel()) * 2
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for _, t in named_leaves(params))
+    nbytes = latent_bytes + weight_bytes + 2 * B * cfg.d_model * 2
+    H, r, rd = cfg.num_heads, m.kv_lora_rank, m.rope_head_dim
+    ops = 2 * B * (count_params(specs) + H * T * (2 * r + rd))
+    shape = f"B={B} T={T} pos={T - 1} H={H} r={r} rd={rd} bf16 (one layer)"
+
+    def call():
+        return attn_lib.mla_decode(params, x, ckv, kr, T - 1, cfg)
+    decode = {
+        "shape": shape,
+        "ms": device_ms(call, calls=10, replays=5),
+        "call_ms": call_ms(call, calls=20),
+        **_bound("mla_decode", shape, nbytes, ops, BF16_OPS_PER_S, card),
+        "latent_bytes": latent_bytes,
+        "latent_bound_ms": latent_bytes / HBM_BYTES_PER_S * 1e3,
+        "weight_bytes": weight_bytes,
+        "library_ms": None,
+        "card": card,
+    }
+    del params, x, ckv, kr
+    torch.cuda.empty_cache()
+    out = {"flash_at_mla_training_shape": flash, "mla_decode_layer": decode}
+    _say("mla_timings", **out)
+    return out
+
+
 def ssd_timings(shape, card: str):
     """The ssd kernel in bf16: its bound is the larger of the bytes (x, dt,
     A, B and C read once, y and the state written once) over the memory rate
@@ -1768,6 +2082,8 @@ def main() -> None:
     ssd_train, ssd_zamba2, ssd_long = (ssd_timings(shape, card) for shape in
                                        (SSD_MAMBA2, SSD_ZAMBA2, SSD_LONG))
     pre_errors = preprocess_vs_plain()
+    torch.cuda.empty_cache()
+    deepseek(card)      # before the phases that grow the host's memory
     feed_launches, feed_err = image_feed(card)
     torch.cuda.empty_cache()
     srv, launches = serve(card, "gemma-2b")
@@ -1799,6 +2115,7 @@ def main() -> None:
     training = flash_timings(4, 1024, card)
     long_train = flash_timings(4, 4096, card)
     granite_train = flash_timings(**FLASH_GRANITE, card=card)
+    mla = mla_timings(card)
     flash_entry = {
         "name": "flash_attention",
         "route": "cuda",
@@ -1812,6 +2129,7 @@ def main() -> None:
         "long_shape": long_train,
         "zamba2_shape": zamba2_train,
         "granite_shape": granite_train,
+        "mla_shape": mla,
     }
     entry = {
         "name": "decode_attention",

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""How far bf16 rounding carries mamba2's and zamba2's decode logits away
-from other paths to the same logits, in the JAX package and in its PyTorch
-port, at the full widths with the depth cut.
+"""How far bf16 rounding carries mamba2's, zamba2's and granite's decode
+logits away from other paths to the same logits, in the JAX package and in
+its PyTorch port, at the full widths with the depth cut.
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/ssm_bf16_drift.py \\
         --arch mamba2-1.3b --layers 6 12 24
 
 For each depth: the architecture's widths with ``num_layers`` cut to it
-(zamba2's by whole periods of its shared block), weights drawn in JAX from
-seed 0 (bf16, as configured) and carried into the port by path, and one
-sequence of 64 random tokens.  In fp32 (the weights cast up) and in bf16, the
+(zamba2's by whole periods of its shared block; granite-moe-1b-a400m's at
+its configured capacity factor of 1.25, so that its decode and forward also
+differ by the assignments the forward's 64 tokens drop), weights drawn in
+JAX from seed 0 (bf16, as configured) and carried into the port by path,
+and one sequence of 64 random tokens.  In fp32 (the weights cast up) and in bf16, the
 logits of every position through
 
 - the decode step and the train forward, for JAX's ``xla`` and
@@ -140,7 +142,8 @@ def measure(arch: str, layers: int) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="mamba2-1.3b",
-                    choices=["mamba2-1.3b", "zamba2-2.7b"])
+                    choices=["mamba2-1.3b", "zamba2-2.7b",
+                             "granite-moe-1b-a400m"])
     ap.add_argument("--layers", type=int, nargs="+", default=[6, 12, 24])
     args = ap.parse_args()
     for layers in args.layers:

@@ -101,35 +101,54 @@ class DeviceFeeder:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         DONE = object()
         err: list = []
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """``item`` to the consumer; False once the consumer has gone."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
+            return False
 
         def producer():
             try:
                 if cuda:
                     torch.cuda.set_device(device)
                 for batch in self.host_iter:
-                    q.put(self._put_cuda(batch, stream) if cuda
-                          else (self._put_cpu(batch), None))
+                    if not put(self._put_cuda(batch, stream) if cuda
+                               else (self._put_cpu(batch), None)):
+                        return
             except BaseException as e:
                 err.append(e)
             finally:
-                q.put(DONE)
+                put(DONE)
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is DONE:
-                if err:
-                    raise err[0]
-                return
-            out, done = item
-            if done is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(done)
-                for v in out.values():
-                    # memory made on the side stream, used on the consumer's
-                    v.record_stream(consumer)
-            yield out
+        try:
+            while True:
+                item = q.get()
+                if item is DONE:
+                    if err:
+                        raise err[0]
+                    return
+                out, done = item
+                if done is not None:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(done)
+                    for v in out.values():
+                        # memory made on the side stream, used on the
+                        # consumer's
+                        v.record_stream(consumer)
+                yield out
+        finally:
+            # a consumer that stops early (the iterator closed or dropped)
+            # lets the producer go: blocked on a full queue, it would hold
+            # the host iterator, and all that refers to, for ever
+            stop.set()
 
 
 def host_slice(batch: Dict[str, np.ndarray], process_index: int,

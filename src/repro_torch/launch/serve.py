@@ -4,8 +4,10 @@
 Requests are batched with a fixed batch of left-aligned prompts.  Each prompt
 is absorbed token by token through the decode step, then new tokens are
 decoded greedily or sampled with a temperature.  It serves the dense, audio
-and vlm families, mamba2 (ssm: the O(1) recurrence on a carried state) and
-zamba2 (hybrid: that recurrence, and the shared attention block through the
+and vlm families, the moe family (granite through the decode-attention
+kernel; deepseek-v3's MLA layers over a cache of latents, in plain ops as in
+JAX), mamba2 (ssm: the O(1) recurrence on a carried state) and zamba2
+(hybrid: that recurrence, and the shared attention block through the
 decode-attention kernel).
 
 Greedy output is the JAX ``Server``'s, token for token.  Temperature sampling

@@ -27,7 +27,10 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         paths, leaves = zip(*named_leaves(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
         loss, metrics = model.loss_fn(unflatten(zip(paths, leaves)), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not reach (a stack of no layers, as deepseek-v3
+        # cut to its dense layers has) gets zeros, as jax.grad gives it
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return unflatten(zip(paths, grads)), metrics
 

@@ -2,11 +2,13 @@
 checkpoint/restart into the lake, straggler detection and failure injection
 (port of ``repro.launch.train``).
 
-It trains the dense, audio and vlm families, mamba2 (ssm) and zamba2
-(hybrid).  The trainer runs on the card unless the caller names another
-device; with no CUDA device present and none named, it raises.  On the card,
-attention goes through the hand-written flash-attention kernel and the
-Mamba2 scan through the hand-written ssd-scan kernel.
+It trains the dense, audio, vlm and moe families (deepseek-v3 with its
+multi-token prediction loss), mamba2 (ssm) and zamba2 (hybrid).  The trainer
+runs on the card unless the caller names another device; with no CUDA
+device present and none named, it raises.  On the card, GQA attention goes
+through the hand-written flash-attention kernel (MLA through the plain
+blockwise attention, as in JAX) and the Mamba2 scan through the hand-written
+ssd-scan kernel.
 
 CLI:
     python -m repro_torch.launch.train --arch gemma-2b --steps 20

@@ -1,6 +1,8 @@
-"""GQA/MQA attention for training and single-token decode (PyTorch port of
-``repro.models.attention``: ``gqa_specs``, ``gqa_qkv``, ``blockwise_attention``,
-``gqa_attend``, ``gqa_train``, ``gqa_decode``).
+"""GQA/MQA and DeepSeek-style MLA attention for training and single-token
+decode (PyTorch port of ``repro.models.attention``: ``gqa_specs``,
+``gqa_qkv``, ``blockwise_attention``, ``gqa_attend``, ``gqa_train``,
+``gqa_decode``, ``mla_specs``, ``mla_project_q``, ``mla_latents``,
+``mla_train``, ``mla_decode``).
 
 Two impls of each attention:
 
@@ -11,8 +13,13 @@ Two impls of each attention:
   (``blockwise_attention`` for training).
 
 Local (sliding-window) layers keep a ring-buffer cache of size ``window``.
-Prefill, the ``pairs`` schedule of ``blockwise_attention`` and MLA come in
-later slices.
+
+MLA runs no kernel, as in JAX: training expands K/V from the latents and runs
+the plain ``blockwise_attention`` under every impl; decode is the absorbed
+form in plain ops over a cache of the latents only.
+
+Prefill and the ``pairs`` schedule of ``blockwise_attention`` come in a later
+slice.
 """
 
 from __future__ import annotations
@@ -54,6 +61,37 @@ def gqa_specs(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, ParamSpec]:
         specs["bv"] = ParamSpec(stack + (Hkv, hd), ax + ("model", None), init="zeros",
                                 dtype=cfg.dtype)
     return specs
+
+
+def mla_specs(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, ParamSpec]:
+    ax = (None,) * len(stack)
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.nope_head_dim
+    return {
+        "w_dq": ParamSpec(stack + (d, m.q_lora_rank), ax + ("fsdp", None),
+                          dtype=cfg.dtype),
+        "q_norm": ParamSpec(stack + (m.q_lora_rank,), ax + (None,),
+                            init="ones", dtype="float32"),
+        "w_uq": ParamSpec(stack + (m.q_lora_rank, H, qk + m.rope_head_dim),
+                          ax + (None, "model", None), dtype=cfg.dtype,
+                          fan_in=m.q_lora_rank),
+        "w_dkv": ParamSpec(stack + (d, m.kv_lora_rank), ax + ("fsdp", None),
+                           dtype=cfg.dtype),
+        "kv_norm": ParamSpec(stack + (m.kv_lora_rank,), ax + (None,),
+                             init="ones", dtype="float32"),
+        "w_uk": ParamSpec(stack + (m.kv_lora_rank, H, qk),
+                          ax + (None, "model", None), dtype=cfg.dtype,
+                          fan_in=m.kv_lora_rank),
+        "w_uv": ParamSpec(stack + (m.kv_lora_rank, H, m.v_head_dim),
+                          ax + (None, "model", None), dtype=cfg.dtype,
+                          fan_in=m.kv_lora_rank),
+        "w_kr": ParamSpec(stack + (d, m.rope_head_dim), ax + ("fsdp", None),
+                          dtype=cfg.dtype),
+        "wo": ParamSpec(stack + (H, m.v_head_dim, d),
+                        ax + ("model", None, "fsdp"), dtype=cfg.dtype,
+                        fan_in=H * m.v_head_dim),
+    }
 
 
 # ------------------------------------------------------- qkv projections
@@ -210,3 +248,86 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg, *, window: int = 0,
         raise ValueError(f"unknown attention impl {impl!r}")
     proj = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
     return proj, cache_k, cache_v
+
+
+# ------------------------------------------------------------------- MLA
+def _mla_rms(scale, x, eps=1e-6):
+    """MLA's own RMS norm of a latent: the square and mean in fp32, times
+    the fp32 ``scale``, cast back to ``x``'s dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def mla_project_q(params, x, positions, cfg):
+    """x (B,S,d) -> q_nope (B,S,H,nope), q_rope (B,S,H,rope), the latter
+    rotated."""
+    m = cfg.mla
+    cq = _mla_rms(params["q_norm"], x @ params["w_dq"])
+    q = torch.einsum("bsr,rhk->bshk", cq, params["w_uq"])
+    q_nope = q[..., : m.nope_head_dim]
+    q_rope = apply_rope(q[..., m.nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_latents(params, x, positions, cfg):
+    """x (B,S,d) -> c_kv (B,S,r) normed, k_rope (B,S,rd) rotated (one rope
+    key shared by every head)."""
+    c_kv = _mla_rms(params["kv_norm"], x @ params["w_dkv"])
+    k_rope = (x @ params["w_kr"])[:, :, None, :]                 # (B,S,1,rd)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_train(params, x, positions, cfg, *, impl: str = "kernel"
+              ) -> torch.Tensor:
+    """Training path: K/V expanded from the latents, then the plain
+    ``blockwise_attention`` under every impl, as JAX runs it (no flash
+    kernel at MLA's head dims).  V is padded up to the QK head dim so that
+    one attention call serves both, and the output sliced back."""
+    if impl not in ("kernel", "torch"):
+        raise ValueError(f"unknown attention impl {impl!r}")
+    m = cfg.mla
+    q_nope, q_rope = mla_project_q(params, x, positions, cfg)
+    c_kv, k_rope = mla_latents(params, x, positions, cfg)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, params["w_uv"])
+    k_rope_h = k_rope[:, :, None, :].expand(
+        k_rope.shape[:2] + (cfg.num_heads, m.rope_head_dim))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    v_pad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
+    out = blockwise_attention(q, k, v_pad, scale=scale, causal=True)
+    out = out[..., : m.v_head_dim]
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
+    """Absorbed single-token MLA decode: attend in the latent space.
+
+    x (B,1,d); caches (B,T,r) and (B,T,rd), which hold only the latents and
+    the rope key; ``pos`` a host int.  Writes this token's latents into the
+    caches IN PLACE at ``pos``, as ``gqa_decode`` writes its K and V, and
+    returns them too.  ``W_uk`` is folded into the query and the context
+    taken in the latent space, then projected through ``W_uv``; the scores
+    and softmax are fp32.
+    """
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = mla_project_q(params, x, positions, cfg)   # (B,1,H,*)
+    c_kv, k_rope = mla_latents(params, x, positions, cfg)   # (B,1,r), (B,1,rd)
+    cache_ckv[:, pos] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_kr[:, pos] = k_rope[:, 0].to(cache_kr.dtype)
+    q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])
+    s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
+    s = s + torch.einsum("bhk,btk->bht", q_rope[:, 0], cache_kr).float()
+    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    T = cache_ckv.shape[1]
+    s = s.masked_fill(torch.arange(T, device=x.device) > pos, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bht,btr->bhr", p.to(cache_ckv.dtype), cache_ckv)
+    out = torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"])       # (B,H,vd)
+    proj = torch.einsum("bhk,hkd->bd", out.to(x.dtype), params["wo"])[:, None]
+    return proj, cache_ckv, cache_kr

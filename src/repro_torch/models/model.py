@@ -5,16 +5,17 @@ Carried through ``loss_fn`` and ``decode_step``:
 
     dense   - starcoder2 / qwen2 / gemma / gemma3 / musicgen / phi3v backbones
               (with the audio and vlm families)
-    moe     - granite (GQA + 32 routed experts); with GQA attention, also
-              the sigmoid router, shared experts and leading dense layers
-              of deepseek-v3
+    moe     - deepseek-v3 (MLA + 1 shared + 256 routed, sigmoid router,
+              leading dense layers, multi-token prediction), granite (GQA +
+              32 routed experts)
     ssm     - mamba2 (attention-free SSD, through the ssd-scan kernel)
     hybrid  - zamba2 (mamba2 backbone + one SHARED GQA block every N layers)
 
-MLA attention (deepseek-v3's) raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.  The moe family's ``loss_fn`` adds 0.01 times
-the load-balance loss summed over the MoE layers, as JAX's does, and
-reports it as ``metrics["aux"]``.
+The moe family's ``loss_fn`` adds 0.01 times the load-balance loss summed
+over the MoE layers, as JAX's does, and reports it as ``metrics["aux"]``;
+with ``mtp_depth``, also 0.3 times the multi-token prediction loss,
+``metrics["mtp"]``.  MLA layers decode over a cache of latents (``ckv``,
+``kr``) in place of K and V.
 
 Parameters are a nested dict of tensors with the JAX package's paths
 (``blocks/attn/wq``), stacked with a leading layer axis as there; a Python
@@ -36,6 +37,7 @@ API:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -78,12 +80,9 @@ class Model:
     def __init__(self, cfg: ModelConfig, attn_impl: str = "kernel") -> None:
         if cfg.family not in ("dense", "audio", "vlm", "moe", "ssm", "hybrid"):
             raise ValueError(cfg.family)
-        if cfg.family != "ssm" and cfg.attention != "gqa" or cfg.mtp_depth:
-            what = (f"{cfg.attention} attention" if cfg.attention != "gqa"
-                    else "multi-token prediction")
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported yet; see ROADMAP Queue 1 "
-                "item 12 (MLA and MTP)")
+        if cfg.family != "ssm" and cfg.attention not in ("gqa", "mla"):
+            raise ValueError(f"{cfg.name}: unknown attention "
+                             f"{cfg.attention!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         if cfg.family == "hybrid":      # zamba2's shared attention block
@@ -94,11 +93,16 @@ class Model:
                 head_dim=cfg.d_model // hb.shared_attn_heads)
 
     # ------------------------------------------------------------ param specs
+    def _attn_specs(self, stack):
+        if self.cfg.attention == "mla":
+            return attn.mla_specs(self.cfg, stack)
+        return attn.gqa_specs(self.cfg, stack)
+
     def _dense_block_specs(self, stack):
         cfg = self.cfg
         return {
             "ln1": _ln(cfg.d_model, stack),
-            "attn": attn.gqa_specs(cfg, stack),
+            "attn": self._attn_specs(stack),
             "ln2": _ln(cfg.d_model, stack),
             "mlp": mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.dtype, stack),
         }
@@ -107,7 +111,7 @@ class Model:
         cfg = self.cfg
         return {
             "ln1": _ln(cfg.d_model, stack),
-            "attn": attn.gqa_specs(cfg, stack),
+            "attn": self._attn_specs(stack),
             "ln2": _ln(cfg.d_model, stack),
             "moe": moe_lib.moe_specs(cfg, stack),
         }
@@ -154,6 +158,13 @@ class Model:
             if nd:
                 specs["dense_blocks"] = self._dense_block_specs((nd,))
             specs["moe_blocks"] = self._moe_block_specs((cfg.num_layers - nd,))
+            if cfg.mtp_depth:
+                specs["mtp"] = {
+                    "proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                      ("fsdp", None), dtype=cfg.dtype),
+                    "block": self._dense_block_specs(()),
+                    "ln": _ln(cfg.d_model),
+                }
         elif cfg.family == "ssm":
             specs["blocks"] = self._ssm_block_specs((cfg.num_layers,))
         elif cfg.family == "hybrid":
@@ -182,8 +193,13 @@ class Model:
         cfg = self.cfg
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
-        h = h + attn.gqa_train(p["attn"], hn, positions, cfg, window=window,
+        if cfg.attention == "mla":
+            a = attn.mla_train(p["attn"], hn, positions, cfg,
                                impl=self.attn_impl)
+        else:
+            a = attn.gqa_train(p["attn"], hn, positions, cfg, window=window,
+                               impl=self.attn_impl)
+        h = h + a
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if "moe" in p:
             out, aux_i = moe_lib.moe_apply(p["moe"], hn, cfg)
@@ -295,7 +311,8 @@ class Model:
     # ------------------------------------------------------------------ train
     def loss_fn(self, params, batch):
         """batch: tokens and targets (B,S) or (B,K,S) int, loss_mask (B,S)
-        [, image_embeds] -> (loss, {"ce", "loss"})."""
+        [, image_embeds] -> (loss, {"ce", "loss"}); the moe family adds
+        "aux", and with multi-token prediction "mtp"."""
         cfg = self.cfg
         tokens = batch["tokens"]
         S = tokens.shape[-1]
@@ -308,7 +325,8 @@ class Model:
         else:
             h = self.backbone(params, h, positions)
         h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
-        logits = self._logits(params, h)
+        head = self.logits_weight(params)   # one fp32 copy for both losses
+        logits = self._logits(params, h, head)
         targets = batch["targets"]
         mask = batch.get("loss_mask")
         if cfg.num_codebooks:       # (B,S,K,V) vs targets (B,K,S)
@@ -320,7 +338,35 @@ class Model:
         if cfg.family != "moe":
             return ce, {"ce": ce, "loss": ce}
         loss = ce + 0.01 * aux
-        return loss, {"ce": ce, "aux": aux, "loss": loss}
+        metrics = {"ce": ce, "aux": aux}
+        if cfg.mtp_depth and "mtp" in params:
+            mtp_loss = self._mtp_loss(params, h, batch, head)
+            loss = loss + 0.3 * mtp_loss
+            metrics["mtp"] = mtp_loss
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def _mtp_loss(self, params, h, batch, head):
+        """DeepSeek-V3 multi-token prediction (depth 1, simplified, as JAX's):
+        at position i, the final-normed ``h`` combined with the unscaled
+        embedding of token i+1 predicts token i+2, through one dense block
+        at positions 0 .. S-2."""
+        cfg = self.cfg
+        p = params["mtp"]
+        tokens, targets = batch["tokens"], batch["targets"]
+        e_next = embed(params["embed"], tokens[:, 1:].long())
+        h_in = torch.cat([rmsnorm(p["ln"], h[:, :-1], cfg.norm_eps), e_next],
+                         dim=-1)
+        h_in = (h_in @ p["proj"]).to(h.dtype)
+        B, S1 = tokens.shape[0], tokens.shape[1] - 1
+        positions = torch.arange(S1, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S1)
+        hm, _ = self._dense_block(p["block"], h_in, positions, "G")
+        logits = self._logits(params, rmsnorm(params["final_ln"], hm,
+                                              cfg.norm_eps), head)
+        mask = batch.get("loss_mask")
+        return softmax_cross_entropy(logits, targets[:, 1:],
+                                     mask[:, 1:] if mask is not None else None)
 
     # ---------------------------------------------------------------- caches
     def cache_specs(self, batch: int, max_len: int):
@@ -340,9 +386,12 @@ class Model:
 
         if cfg.family == "moe":
             nd = cfg.moe.first_dense_layers
-            out = {"moe_layers": kv((cfg.num_layers - nd,), max_len)}
+            layers = kv
+            if cfg.attention == "mla":
+                layers = functools.partial(self._mla_cache_specs, batch)
+            out = {"moe_layers": layers((cfg.num_layers - nd,), max_len)}
             if nd:
-                out["dense_layers"] = kv((nd,), max_len)
+                out["dense_layers"] = layers((nd,), max_len)
             return out
         W = min(cfg.sliding_window or max_len, max_len)
         if cfg.local_global_pattern:
@@ -356,6 +405,17 @@ class Model:
             return out
         T = W if cfg.sliding_window else max_len
         return {"layers": kv((cfg.num_layers,), T)}
+
+    def _mla_cache_specs(self, batch: int, stack, max_len: int):
+        """MLA's cache: the normed latents ``ckv`` (..., B, T, r) and the
+        rotated rope key ``kr`` (..., B, T, rd), in the model's dtype."""
+        cfg, m = self.cfg, self.cfg.mla
+        seq_ax = "seq" if cfg.seq_shard_attn else None
+        axes = (None,) * len(stack) + ("batch", seq_ax, None)
+        return {name: ParamSpec(tuple(stack) + (batch, max_len, width), axes,
+                                init="zeros", dtype=cfg.dtype)
+                for name, width in (("ckv", m.kv_lora_rank),
+                                    ("kr", m.rope_head_dim))}
 
     def _ssm_cache_specs(self, batch: int, max_len: int):
         """The fp32 SSM state (..., B, nh, N, P) and the conv cache
@@ -424,11 +484,16 @@ class Model:
 
     # ------------------------------------------------------------------ decode
     def _dense_step(self, p, h, ck, cv, pos: int, kind: str):
+        """One layer's decode step; for MLA, ``ck`` and ``cv`` are the
+        layer's ``ckv`` and ``kr`` caches."""
         cfg = self.cfg
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
-        a, ck, cv = attn.gqa_decode(p["attn"], hn, ck, cv, pos, cfg,
-                                    window=window, impl=self.attn_impl)
+        if cfg.attention == "mla":
+            a, ck, cv = attn.mla_decode(p["attn"], hn, ck, cv, pos, cfg)
+        else:
+            a, ck, cv = attn.gqa_decode(p["attn"], hn, ck, cv, pos, cfg,
+                                        window=window, impl=self.attn_impl)
         h = h + a
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if "moe" in p:
@@ -460,14 +525,15 @@ class Model:
         elif cfg.family == "hybrid":
             h = self._decode_hybrid(params, cache, h, pos)
         elif cfg.family == "moe":
+            names = ("ckv", "kr") if cfg.attention == "mla" else ("k", "v")
             for blocks, layers in (("dense_blocks", "dense_layers"),
                                    ("moe_blocks", "moe_layers")):
                 if blocks not in params:
                     continue
-                kv = cache[layers]
-                for i in range(kv["k"].shape[0]):
+                first, second = (cache[layers][n] for n in names)
+                for i in range(first.shape[0]):
                     h = self._dense_step(_index(params[blocks], i), h,
-                                         kv["k"][i], kv["v"][i], pos, "G")
+                                         first[i], second[i], pos, "G")
         elif cfg.local_global_pattern:
             h = self._decode_pattern(params, cache, h, pos)
         else:

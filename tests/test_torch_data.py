@@ -91,3 +91,38 @@ def test_device_feeder_raises_what_its_source_raises():
     assert torch.equal(next(it)["tokens"], torch.zeros((1, 2), dtype=torch.int32))
     with pytest.raises(OSError, match="lake went away"):
         next(it)
+
+
+def test_device_feeder_dropped_early_frees_its_source():
+    """A consumer that takes one batch and drops the iterator (as a trainer
+    does when its run ends) lets the producer thread end, so that the
+    source, and what it refers to (a trainer and its checkpoint lake), can
+    be freed."""
+    import gc
+    import threading
+    import time
+    import weakref
+
+    class Held:
+        pass
+
+    def source(held):
+        for i in range(100):
+            yield {"tokens": np.full((1, 2), i, np.int32)}
+
+    held = Held()
+    ref = weakref.ref(held)
+    before = set(threading.enumerate())
+    it = iter(DeviceFeeder(source(held), "cpu", prefetch=1))
+    assert next(it)["tokens"][0, 0].item() == 0
+    producers = [t for t in set(threading.enumerate()) - before
+                 if t.name.endswith("(producer)")]
+    assert len(producers) == 1
+    del it, held
+    deadline = time.monotonic() + 10
+    while (ref() is not None or producers[0].is_alive()) and \
+            time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.05)
+    assert ref() is None
+    assert not producers[0].is_alive()

@@ -162,5 +162,6 @@ def test_model_axis_and_unported_families_raise():
     with pytest.raises(NotImplementedError, match="distribution"):
         Server(ServeJob(model_axis=2), device="cpu")
     assert build_model(get_arch("granite-moe-1b-a400m")).cfg.family == "moe"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build_model(get_arch("deepseek-v3-671b"))
+    assert build_model(get_arch("deepseek-v3-671b")).cfg.attention == "mla"
+    with pytest.raises(NotImplementedError, match="distribution"):
+        Server(ServeJob(arch="deepseek-v3-671b", model_axis=2), device="cpu")
