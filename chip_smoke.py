@@ -29,7 +29,10 @@ code is not 0:
    deepseek-v3 width (B=4, S=1024, H=Hkv=128, D=192: V padded to the QK
    dim); the profiler's kernel names show
    each bf16 case on the tensor-core kernel and each fp32 case on the
-   CUDA-core one; and one gradient through its autograd function against plain
+   CUDA-core one; the [prefill] phase's shape (B=4, S=32768, gemma-2b's
+   widths) on three blocks of query rows against the plain
+   ``blockwise_attention`` with their offset (``ref_attention`` would
+   materialize 137 GB); and one gradient through its autograd function against plain
    autograd (a check of the function's wiring: its backward is the plain
    recompute).  SSD scan: the JAX ssd sweep's shapes, a ragged chunk (Q =
    S = 200), a single chunk with G=4, widths its 16-byte copies cannot take
@@ -56,7 +59,9 @@ code is not 0:
    no decode-kernel launch (MLA decodes in plain ops over its latent cache,
    as in JAX); ``[mla_decode_vs_forward]``: at depth 3 (no MoE layer), the
    absorbed decode logits at 64 positions against the train forward's
-   through ``mla_train``, within 2e-2 in fp32 (bf16 reported);
+   through ``mla_train``, and the first 32 tokens prefilled (no kernel) and
+   the rest decoded from the padded cache against that decode, within 2e-2
+   in fp32 (bf16 reported);
    ``[grad_deepseek]``: one loss and gradient of the depth-4 model with MTP
    on 1 x 1024 tokens, finite, with ce, aux and mtp; ``[train_deepseek]``:
    phase 4's gates at depth 3 plus MTP (8 steps of 4 x 1024 Zipf tokens,
@@ -77,7 +82,17 @@ code is not 0:
    weights from a seeded generator): 32 prompt + 32 new tokens for a batch
    of 4, launched through the decode kernel once per layer and token; then
    the same 64 positions, on a cache of the served length, through the
-   kernel and through the plain ``torch`` attention agree;
+   kernel and through the plain ``torch`` attention agree; and the prompt
+   through ``make_prefill_step`` (the flash kernel once per layer), its
+   cache padded and the new tokens decoded from it, agree with that decode;
+3a. prefill: ``make_prefill_step`` on the served gemma-2b at B=4, S=32768
+   (prefill_32k's length, its batch of 32 cut to 4): three prefills timed,
+   18 flash launches each and no other kernel, finite logits, tokens/s,
+   peak memory, the cache's 2.4 GB, the device ms by group; 8 decode steps
+   from the padded cache through the decode kernel against the forward over
+   S + 8 tokens (its last positions' logits only), within 2e-2 in fp32 at
+   B=1 (bf16 at B=4 reported); and at S=4096 the logits and caches through
+   the kernel against the plain ``torch`` and ``torch_pairs`` impls;
 4. train: ``Trainer.run`` on full-width gemma-2b (bf16, remat "full"): 8
    steps of batch 4 x 1024 tokens streamed from a lake of synthetic
    documents through ``DeviceFeeder``, through the flash kernel twice per
@@ -123,13 +138,18 @@ code is not 0:
    512 positions (two chunks) against the train forward's through the ssd
    kernel, within 2e-2 relative in fp32 (and, reported, in bf16; see
    ``scripts/ssm_bf16_drift.py`` for the JAX package's own bf16 drift);
+   and each model's prefill and its continuation against its decode, as
+   in phase 3, in fp32 (granite at its dropless capacity factor 16; the
+   mamba layers scan through the plain ``ssd_chunked``, as in JAX);
 12. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
    version's and one PyTorch call's (none computes SSD, none crops and
    normalizes), at the main path's shapes (decode at gemma-2b's widths with
    T of 64, 1024, 4096 and 32768 and at zamba2's served shape, each also as
    the ms of one call issued from Python; flash also at zamba2's shared
-   block, B=2 S=1024 H=Hkv=32 D=80, from phase 8; ssd at mamba2's, the long
+   block, B=2 S=1024 H=Hkv=32 D=80, from phase 8, and at the [prefill]
+   phase's B=4 S=32768, whose plain version is ``blockwise_attention``;
+   each entry's launches count phase 3a's too; ssd at mamba2's, the long
    and zamba2's shapes, with the ms of a call, each pass's ms and the bf16
    route's own byte floor; preprocess at the feed's batch with it in L2 and
    over a rotation of 5 batches, the ms of a call, and the 3.1 GB case); a
@@ -295,6 +315,21 @@ FLASH_GRANITE = dict(B=4, S=1024, H=16, Hkv=8, D=64)
 FLASH_MLA = dict(B=4, S=1024, H=128, Hkv=128, D=192)
 # one absorbed MLA decode layer timed as a yardstick: batch 4, a 32k cache
 MLA_DECODE = dict(B=4, T=32768)
+# the [prefill] phase: full-width gemma-2b over prefill_32k's length (its
+# batch of 32 cut to 4 to fit one card), then 8 decode steps from its cache;
+# the fp32 check of that continuation at batch 1; the kernel against the
+# plain impls at 4096 tokens
+PREFILL = dict(B=4, S=32768)
+PREFILL_STEPS = 8
+PREFILL_FP32_S = 32768
+PREFILL_IMPLS_S = 4096
+# the flash kernel at the [prefill] phase's shape, and the blocks of query
+# rows held against the plain version there: the first, a middle, the last
+FLASH_PREFILL = dict(B=4, S=32768, H=8, Hkv=1, D=256)
+FLASH_PREFILL_ROWS = ((0, 512), (16128, 16640), (32256, 32768))
+# ref_attention materializes B*H*S*T fp32 scores; past this S (2.1 GB of
+# them at B=4, H=8) the plain version timed is blockwise_attention
+PLAIN_MAX_S = 4096
 
 # the decode and flash kernels each input dtype runs, as the profiler names
 # them (a decode call of more than one split also runs the combine)
@@ -589,6 +624,44 @@ def flash_vs_plain():
         raise AssertionError(f"flash gradient differs from plain: {grad_err}")
     _say("flash_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
          grad_max_abs_err=grad_err, routes=routes, errors=errors)
+    return errors
+
+
+def flash_prefill_vs_plain():
+    """The flash kernel at the [prefill] phase's shape (``FLASH_PREFILL``,
+    bf16, causal) against the plain ``blockwise_attention`` (the ``torch``
+    impl; ``ref_attention`` would materialize 137 GB of scores) on the
+    blocks of query rows ``FLASH_PREFILL_ROWS``, each with its keys up to the
+    block's end and its rows' offset, under ``flash_vs_plain``'s two gates."""
+    B, S, H, Hkv, D = FLASH_PREFILL.values()
+    q, k, v = _flash_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=3)
+    got, names = _profiled(lambda: flash_attention(q, k, v), "flash_fwd")
+    route = FLASH_ROUTES[torch.bfloat16]
+    if not names or not all(route in n for n in names):
+        raise AssertionError(f"flash at {FLASH_PREFILL} ran {names}")
+    errors, errors32 = {}, {}
+    tol, half_ulp = TOL[torch.bfloat16], 2.0 ** -8
+    for r0, r1 in FLASH_PREFILL_ROWS:
+        def plain(dtype):
+            return attn_lib.blockwise_attention(
+                q[:, r0:r1].to(dtype), k[:, :r1].to(dtype), v[:, :r1].to(dtype),
+                scale=1.0 / math.sqrt(D), q_offset=r0).float()
+        rows = got[:, r0:r1].float()
+        want, want32 = plain(torch.bfloat16), plain(torch.float32)
+        diff, diff32 = (rows - want).abs(), (rows - want32).abs()
+        name = f"bf16 B{B} S{S} H{H} Hkv{Hkv} D{D} rows {r0}-{r1}"
+        errors[name], errors32[name] = diff.max().item(), diff32.max().item()
+        if not (bool((diff <= tol + tol * want.abs()).all())
+                and bool((diff32 <= TOL[torch.float32]
+                          + half_ulp * want32.abs()).all())
+                and bool(torch.isfinite(rows).all())):
+            raise AssertionError(
+                f"flash kernel disagrees with plain at {name}: max|err| "
+                f"{errors[name]}, against fp32 {errors32[name]}")
+    _say("flash_prefill_vs_plain", shape=FLASH_PREFILL, routes=sorted(names),
+         errors=errors, errors_against_fp32=errors32)
+    del q, k, v, got
+    torch.cuda.empty_cache()
     return errors
 
 
@@ -1019,6 +1092,7 @@ def serve(card: str, arch: str, layers=None, tag: str = "serve"):
     second = dict(again.stats, tokens_per_s=again.throughput())
     del again
 
+    held = cfg.dtype if cfg.family == "dense" else "float32"
     if cfg.family == "ssm":
         check = "decode vs the train forward through the ssd kernel"
         rel, steps = _decode_vs_forward(srv, 512), 512
@@ -1026,14 +1100,15 @@ def serve(card: str, arch: str, layers=None, tag: str = "serve"):
         check, rel, steps = "in [mla_decode_vs_forward]", None, None
     else:
         check = "decode kernel vs torch attention"
-        held = cfg.dtype if cfg.family == "dense" else "float32"
         rel, steps = _decode_kernel_vs_torch(srv, out, held), total
+    prefill = (_prefill_vs_decode(srv, out, held) if cfg.attention != "mla"
+               else "in [mla_decode_vs_forward]")
     _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
          reduced=_reduced(cfg),
          d_model=cfg.d_model, batch=job.batch, prompt_len=job.prompt_len,
          new_tokens=job.max_new_tokens, launches=counts,
          first_server=first, second_server=second, check=check,
-         check_rel=rel, check_steps=steps,
+         check_rel=rel, check_steps=steps, prefill_vs_decode=prefill,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
          sample=out[0, job.prompt_len:job.prompt_len + 8].tolist())
     return srv, counts["decode_attention"]
@@ -1133,6 +1208,72 @@ def _decode_vs_forward(srv, steps: int) -> dict:
     if not out["float32"]["max"] < DECODE_RTOL:
         raise AssertionError(f"mamba2 decode vs forward: {out}")
     return out
+
+
+def _pad_cache(model, cache, batch: int, length: int):
+    """A prefill cache zero-padded, leaf by leaf, to the shapes of
+    ``model.cache_specs(batch, length)``: along the time axes of the global
+    caches and of local ones shorter than their window (the SSM state and
+    conv tail have none).  In inference mode, where a prefill's cache was
+    made and may be written."""
+    def pad(leaf, spec):
+        out = leaf.new_zeros(spec.shape)
+        out[tuple(slice(0, n) for n in leaf.shape)] = leaf
+        return out
+    with torch.inference_mode():
+        return tree_map(pad, cache, model.cache_specs(batch, length))
+
+
+def _rel_rows(got, want) -> float:
+    """The largest difference relative to the largest |want|, row by row
+    (a row: one sequence's logits at one position), the largest of those."""
+    got, want = got.float().flatten(0, -2), want.float().flatten(0, -2)
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+
+
+def _prefill_vs_decode(srv, out, held: str) -> dict:
+    """The served tokens prefilled, then continued by decode, against the
+    served decode: the prompt through ``make_prefill_step`` (the flash kernel
+    once per attention layer, the ssd kernel never: the mamba layers scan
+    through the plain ``ssd_chunked``, as in JAX), its last logits against
+    the served decode's at the prompt's last position; its cache padded to
+    the served length, and the new tokens through ``make_decode_step``
+    against the served decode's logits at their positions.  On the served
+    weights in ``held`` (cast up for "float32", as
+    ``_decode_kernel_vs_torch`` holds each family), with the served head;
+    a moe model at its dropless capacity factor 16 in both (at 1.25 a
+    prefill of 4 x 32 tokens drops assignments that decode at 4 does not),
+    its served decode taken again so.  Held at ``DECODE_RTOL``."""
+    cfg = srv.cfg.with_(dtype=held)
+    if cfg.moe:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    params = (srv.params if held == srv.cfg.dtype
+              else tree_map(lambda p: p.float(), srv.params))
+    model, V = build_model(cfg), cfg.vocab_size
+    B, total = out.shape
+    P = srv.job.prompt_len
+    tokens = torch.from_numpy(out).to(srv.device, torch.int64)
+    with torch.inference_mode():
+        cache = model.init_cache(B, total, srv.device)
+        served = []
+        for t in range(total):
+            lg, cache = model.decode_step(params, cache, tokens[:, t], t,
+                                          head=srv.head)
+            served.append(lg[:, :V].float())
+        del cache
+    got, flash, decode = _continue(model, params, tokens, P, srv.head)
+    _check_counts(flash, {"flash_attention": _attention_layers(cfg)},
+                  f"{cfg.name} prefill")
+    _check_counts(decode, {"decode_attention": _attention_layers(cfg)
+                           * (total - P)}, f"{cfg.name} decode from prefill")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+    rel = {"dtype": held, "prefill_last": _rel_rows(got[0], served[P - 1]),
+           "continuation": _rel_rows(got[1:], torch.stack(served[P:]))}
+    if not max(rel["prefill_last"], rel["continuation"]) < DECODE_RTOL:
+        raise AssertionError(f"{cfg.name} prefill vs decode: {rel}")
+    del params, served, got
+    return rel
 
 
 # ----------------------------------------------------------------- phase 4
@@ -1565,6 +1706,177 @@ def trace(srv, card: str):
          decode_attention_32k=attn)
 
 
+# ---------------------------------------------------------------- phase 3a
+def _last_logits(model, params, tokens, head, n: int):
+    """The train forward (``backbone``, through the flash kernel) over
+    ``tokens``, and the logits of its last ``n`` positions only: at 32k
+    positions all of them would be ~134 GB in fp32."""
+    cfg = model.cfg
+    B, T = tokens.shape
+    with torch.inference_mode():
+        positions = torch.arange(T, dtype=torch.int32,
+                                 device=tokens.device).expand(B, T)
+        h = model.backbone(params, model._embed_tokens(
+            params, {"tokens": tokens}), positions)
+        h = rmsnorm(params["final_ln"], h[:, -n:], cfg.norm_eps)
+        return model._logits(params, h, head)[..., :cfg.vocab_size].float()
+
+
+def _continue(model, params, tokens, S: int, head):
+    """``make_prefill_step`` over the first S tokens, the cache padded to
+    the whole length, ``make_decode_step`` over the rest: -> (the prefill's
+    last logits and the decode's, (n+1, B, V) over the real vocabulary,
+    the flash launches of the prefill, the decode launches)."""
+    V = model.cfg.vocab_size
+    B, T = tokens.shape
+    _reset_counts()
+    last, cache = steps_lib.make_prefill_step(model)(
+        params, {"tokens": tokens[:, :S]}, head=head)
+    flash = _counts()
+    cache = _pad_cache(model, cache, B, T)
+    step = steps_lib.make_decode_step(model)
+    _reset_counts()
+    out = [last[:, :V].float()]
+    for t in range(S, T):
+        lg, cache = step(params, cache, tokens[:, t], t, head=head)
+        out.append(lg[:, :V].float())
+    return torch.stack(out), flash, _counts()
+
+
+def _prefill_impls(cfg, params, batch, head) -> dict:
+    """``make_prefill_step`` on ``batch`` through the kernel and through the
+    plain ``torch`` and ``torch_pairs`` impls (the flash kernel once per
+    layer in the first, never in the others): for each plain impl, the
+    logits' largest difference from the kernel's relative to the largest
+    logit, and the largest over the cache's leaves of each leaf's largest
+    difference relative to its largest value."""
+    outs = {}
+    for impl in ("kernel", "torch", "torch_pairs"):
+        _reset_counts()
+        outs[impl] = steps_lib.make_prefill_step(
+            build_model(cfg, attn_impl=impl))(params, batch, head=head)
+        _check_counts(_counts(), {"flash_attention": _attention_layers(cfg)}
+                      if impl == "kernel" else {}, f"{impl} prefill")
+    V, (logits, cache) = cfg.vocab_size, outs.pop("kernel")
+    out = {}
+    for impl, (want_logits, want_cache) in outs.items():
+        leaves = dict(named_leaves(want_cache))
+        out[impl] = {
+            "logits": _rel_rows(logits[:, :V], want_logits[:, :V]),
+            "cache": max(((t.float() - leaves[path].float()).abs().max()
+                          / leaves[path].float().abs().max()).item()
+                         for path, t in named_leaves(cache))}
+    return out
+
+
+def prefill(card: str, srv):
+    """Phase 3a: ``make_prefill_step`` on the served full-width gemma-2b (18
+    layers, bf16) at ``PREFILL`` (prefill_32k's length; its batch of 32 cut
+    to 4): three prefills timed, each through the flash kernel once per
+    layer and through no other kernel, finite logits; the peak memory, the
+    cache's size and the device ms by group.  Then 8 decode steps from the
+    padded cache through the decode kernel (18 launches each) against the
+    train forward over S + 8 tokens through the flash kernel, its last 9
+    positions: held at ``DECODE_RTOL`` in fp32 at batch 1 and S =
+    ``PREFILL_FP32_S`` (the weights cast up), reported in bf16 at batch 4.
+    Then, at ``PREFILL_IMPLS_S`` tokens, the logits and every cache leaf
+    through the kernel against the plain ``torch`` and ``torch_pairs``
+    impls (``_prefill_impls``): held at ``DECODE_RTOL`` in fp32 (the weights
+    cast up), and in bf16 the logits, as ``_decode_kernel_vs_torch`` holds
+    gemma-2b; bf16's caches are reported, not held: the plain impls round
+    P to bf16 before P·V, the kernel does not, and a leaf of a late layer
+    differed by 0.0205 of its largest value.
+    -> (flash launches, decode launches) of the phase's main path: the
+    three prefills and the bf16 continuation."""
+    cfg, params, head = srv.cfg, srv.params, srv.head
+    B, S = PREFILL["B"], PREFILL["S"]
+    L, V = _attention_layers(cfg), cfg.vocab_size
+    model = build_model(cfg)
+    step = steps_lib.make_prefill_step(model)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, V, (B, S + PREFILL_STEPS))).to(srv.device)
+    batch = {"tokens": tokens[:, :S]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls, flash_launches, logits, cache = [], 0, None, None
+    for _ in range(3):
+        del logits, cache
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(params, batch, head=head)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = _counts()
+        _check_counts(counts, {"flash_attention": L}, "gemma-2b prefill")
+        flash_launches += counts["flash_attention"]
+    if logits.shape != (B, cfg.padded_vocab) or \
+            not torch.isfinite(logits[:, :V]).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache_gb = sum(t.nbytes for _, t in named_leaves(cache)) / 1e9
+    del logits, cache
+    groups = device_ms_by_group(lambda: step(params, batch, head=head),
+                                calls=1)
+    torch.cuda.empty_cache()
+
+    # the continuation: bf16 at batch 4 (reported), fp32 at batch 1 (held)
+    got, flash, decode = _continue(model, params, tokens, S, head)
+    _check_counts(flash, {"flash_attention": L}, "gemma-2b prefill")
+    _check_counts(decode, {"decode_attention": L * PREFILL_STEPS},
+                  "decode from the prefill cache")
+    decode_launches = decode["decode_attention"]
+    flash_launches += flash["flash_attention"]
+    want = _last_logits(model, params, tokens, head, PREFILL_STEPS + 1)
+    cont = {"bfloat16": {"batch": B, "S": S,
+                         "rel": _rel_rows(got, want.movedim(1, 0))}}
+    del got, want
+    torch.cuda.empty_cache()
+    params32 = tree_map(lambda p: p.float(), params)
+    model32 = build_model(cfg.with_(dtype="float32"))
+    tokens32 = tokens[:1, S - PREFILL_FP32_S:]
+    t0 = time.perf_counter()
+    got, flash, decode = _continue(model32, params32, tokens32,
+                                   PREFILL_FP32_S, head)
+    _check_counts(flash, {"flash_attention": L}, "fp32 prefill")
+    _check_counts(decode, {"decode_attention": L * PREFILL_STEPS},
+                  "fp32 decode from the prefill cache")
+    want = _last_logits(model32, params32, tokens32, head, PREFILL_STEPS + 1)
+    torch.cuda.synchronize()
+    cont["float32"] = {"batch": 1, "S": PREFILL_FP32_S,
+                       "rel": _rel_rows(got, want.movedim(1, 0)),
+                       "seconds": time.perf_counter() - t0}
+    del got, want
+    torch.cuda.empty_cache()
+    if not cont["float32"]["rel"] < DECODE_RTOL:
+        raise AssertionError(f"decode from the prefill cache vs forward: "
+                             f"{cont}")
+
+    # the kernel against the plain impls at PREFILL_IMPLS_S tokens
+    small = {"tokens": tokens[:, :PREFILL_IMPLS_S]}
+    impls = {"bfloat16": _prefill_impls(cfg, params, small, head),
+             "float32": _prefill_impls(model32.cfg, params32, small, head)}
+    del params32
+    torch.cuda.empty_cache()
+    if not (max(max(r.values()) for r in impls["float32"].values())
+            < DECODE_RTOL and max(r["logits"] for r in
+                                  impls["bfloat16"].values()) < DECODE_RTOL):
+        raise AssertionError(f"prefill kernel vs plain impls: {impls}")
+    _say("prefill", card=card, arch=cfg.name, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype, batch=B, seq_len=S,
+         reduced={"batch": [32, B]}, launches_per_prefill={
+             "flash_attention": L}, wall_s=walls,
+         wall_s_median=statistics.median(walls),
+         tokens_per_s=B * S / statistics.median(walls),
+         peak_memory_gb=peak_gb, cache_gb=cache_gb,
+         device_ms_by_group=groups, decode_steps=PREFILL_STEPS,
+         decode_launches=decode_launches, continuation_vs_forward=cont,
+         rtol=DECODE_RTOL, held="float32",
+         kernel_vs_plain_impls={"S": PREFILL_IMPLS_S, **impls})
+    return flash_launches, decode_launches
+
+
 # --------------------------------------------------------------- moe layer
 def moe_layer(card: str):
     """One full-width granite MoE layer on the card at the train phase's 4 x
@@ -1687,8 +1999,11 @@ def mla_decode_vs_forward(card: str, srv, steps: int = 64) -> dict:
     weights; the absorbed decode logits of each of ``steps`` positions
     against the train forward's, which runs through ``mla_train``, as the
     largest difference over the vocabulary's real slots relative to the
-    largest logit.  Held at ``DECODE_RTOL`` in fp32 (the weights cast up),
-    reported in the served bf16.  No kernel is launched."""
+    largest logit.  Then ``_prefill_vs_decode``'s check on the same
+    tokens: the first half prefilled, its last logits against the decode's
+    there, its cache padded and the second half decoded from it against the
+    decode's logits.  Both held at ``DECODE_RTOL`` in fp32 (the weights cast
+    up), reported in the served bf16.  No kernel is launched."""
     cfg = srv.cfg.with_(num_layers=DEEPSEEK_TRAIN_LAYERS)
     V, B = cfg.vocab_size, 2
     served = {k: v for k, v in srv.params.items()
@@ -1709,7 +2024,7 @@ def mla_decode_vs_forward(card: str, srv, steps: int = 64) -> dict:
             fwd = model._logits(params, rmsnorm(params["final_ln"], h,
                                                 cfg.norm_eps), head)[..., :V]
             cache = model.init_cache(B, steps, "cuda")
-            rel = []
+            rel, decoded = [], []
             for t in range(steps):
                 got, cache = model.decode_step(params, cache, tokens[:, t], t,
                                                head=head)
@@ -1719,12 +2034,20 @@ def mla_decode_vs_forward(card: str, srv, steps: int = 64) -> dict:
                         f"non-finite MLA decode logits at {t}")
                 rel.append(((got - want).abs().max()
                             / want.abs().max()).item())
+                decoded.append(got.float())
+        P = steps // 2
+        got = _continue(model, params, tokens, P, head)[0]
+        prefill = {"prefill_last": _rel_rows(got[0], decoded[P - 1]),
+                   "continuation": _rel_rows(got[1:],
+                                             torch.stack(decoded[P:]))}
         out[dtype] = {"max": max(rel), "argmax": int(np.argmax(rel)),
-                      "at": {t: rel[t] for t in (0, 1, steps // 2, steps - 1)}}
-        del params, head, h, fwd, cache
-    _check_counts(_counts(), {}, "MLA decode and forward")
-    if not out["float32"]["max"] < DECODE_RTOL:
-        raise AssertionError(f"MLA decode vs forward: {out}")
+                      "at": {t: rel[t] for t in (0, 1, steps // 2, steps - 1)},
+                      "prefill_vs_decode": prefill}
+        del params, head, h, fwd, cache, decoded
+    _check_counts(_counts(), {}, "MLA decode, forward and prefill")
+    if not max(out["float32"]["max"],
+               *out["float32"]["prefill_vs_decode"].values()) < DECODE_RTOL:
+        raise AssertionError(f"MLA decode vs forward and prefill: {out}")
     _say("mla_decode_vs_forward", card=card, arch=cfg.name,
          layers=cfg.num_layers, reduced=_reduced(cfg), batch=B, steps=steps,
          rtol=DECODE_RTOL, held="float32", **out)
@@ -1897,26 +2220,39 @@ def timings(B: int, H: int, Hkv: int, D: int, T: int, pos: int, card: str):
 
 def flash_timings(B: int, S: int, card: str, H: int = GEMMA["H"],
                   Hkv: int = GEMMA["Hkv"], D: int = GEMMA["D"]):
-    """The flash kernel, causal, bf16; at gemma-2b's widths by default."""
+    """The flash kernel, causal, bf16; at gemma-2b's widths by default.
+    Past ``PLAIN_MAX_S`` the plain version timed is the ``torch`` impl's
+    ``blockwise_attention`` (``ref_attention``'s scores would not fit), and
+    fewer calls are timed (a call takes ~0.1 s at 32k)."""
     q, k, v = _flash_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=5)
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
     ops = 4 * B * H * D * pairs                 # QK^T and PV, 2 each a pair
     nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2
     shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal bf16"
     q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
+    long = S > PLAIN_MAX_S
 
     def library():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                               enable_gqa=True)
+
+    def plain():
+        if long:
+            return attn_lib.blockwise_attention(q, k, v,
+                                                scale=1.0 / math.sqrt(D))
+        return ref_attention(q, k, v)
     lib_err = (library().transpose(1, 2).float()
-               - ref_attention(q, k, v).float()).abs().max().item()
+               - plain().float()).abs().max().item()
+    few = dict(calls=2, replays=3) if long else {}
     return {
         "shape": shape,
-        "ms": device_ms(lambda: flash_attention(q, k, v)),
-        "call_ms": call_ms(lambda: flash_attention(q, k, v), calls=20),
-        "plain_ms": device_ms(lambda: ref_attention(q, k, v), calls=5,
-                              replays=4),
-        "library_ms": device_ms(library),
+        "ms": device_ms(lambda: flash_attention(q, k, v), **few),
+        "call_ms": call_ms(lambda: flash_attention(q, k, v),
+                           calls=5 if long else 20),
+        "plain_ms": device_ms(plain, calls=1, replays=2) if long
+        else device_ms(plain, calls=5, replays=4),
+        "plain": "blockwise_attention" if long else "ref_attention",
+        "library_ms": device_ms(library, **few),
         "library_max_abs_err": lib_err,
         **_bound("flash_attention", shape, nbytes, ops, BF16_OPS_PER_S, card),
         "card": card,
@@ -2077,6 +2413,7 @@ def main() -> None:
     card = environment()
     errors = kernel_vs_plain()
     flash_errors = flash_vs_plain()
+    flash_errors.update(flash_prefill_vs_plain())
     ssd_errors = ssd_vs_plain()
     # timed here, where the profiler's per-pass records are kept
     ssd_train, ssd_zamba2, ssd_long = (ssd_timings(shape, card) for shape in
@@ -2088,10 +2425,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     srv, launches = serve(card, "gemma-2b")
     trace(srv, card)
+    prefill_flash, prefill_decode = prefill(card, srv)
+    launches += prefill_decode
     del srv
     torch.cuda.empty_cache()
     trainer, state, batch, counts = train(card)
-    flash_launches = counts["flash_attention"]
+    flash_launches = counts["flash_attention"] + prefill_flash
     resume(card)
     trace_train(trainer, state, batch, card)
     del trainer, state, batch
@@ -2114,6 +2453,7 @@ def main() -> None:
     serving = decode_rows[0]          # the served cache, T=64
     training = flash_timings(4, 1024, card)
     long_train = flash_timings(4, 4096, card)
+    prefill_shape = flash_timings(**FLASH_PREFILL, card=card)
     granite_train = flash_timings(**FLASH_GRANITE, card=card)
     mla = mla_timings(card)
     flash_entry = {
@@ -2127,6 +2467,7 @@ def main() -> None:
                                     "library_ms")},
         "training_shape": training,
         "long_shape": long_train,
+        "prefill_shape": prefill_shape,
         "zamba2_shape": zamba2_train,
         "granite_shape": granite_train,
         "mla_shape": mla,

@@ -1,9 +1,11 @@
-"""The train step and its state (port of ``repro.launch.steps``:
-``make_train_step``, ``train_state_specs``, ``init_state``).
+"""The train, prefill and decode steps and the train state (port of
+``repro.launch.steps``: ``make_train_step``, ``make_prefill_step``,
+``make_decode_step``, ``train_state_specs``, ``init_state``).
 
-The step updates its state IN PLACE and returns it, as the JAX trainer
-donates the state to its jitted step.  Lowering a cell for the dry run
-(``build_cell``, ``lower_cell``) waits for ROADMAP Queue 1 item 17.
+The train step updates its state IN PLACE and returns it, as the JAX trainer
+donates the state to its jitted step; the decode step so updates its cache.
+Lowering a cell for the dry run (``build_cell``, ``lower_cell``) waits for
+ROADMAP Queue 1 item 17.
 """
 
 from __future__ import annotations
@@ -69,6 +71,29 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         return new_state, metrics
 
     return train_step
+
+
+def make_prefill_step(model: Model):
+    """(params, batch) -> (the last token's logits, the cache of length S),
+    under ``torch.inference_mode()``: a prefill that recorded autograd would
+    keep every layer's activations.  ``head`` is ``model.logits_weight``, as
+    ``Model.prefill`` takes it."""
+    @torch.inference_mode()
+    def prefill_step(params, batch, *, head=None):
+        return model.prefill(params, batch, head=head)
+    return prefill_step
+
+
+def make_decode_step(model: Model):
+    """(params, cache, tokens, pos) -> (logits, cache), the cache written in
+    place, under ``torch.inference_mode()``.  A cache made in inference mode
+    (a prefill's) may be written in place only inside it, so this step runs
+    there, and so must whatever pads a prefill cache to the decode length.
+    ``head`` is ``model.logits_weight``, as ``Model.decode_step`` takes it."""
+    @torch.inference_mode()
+    def decode_step(params, cache, tokens, pos: int, *, head=None):
+        return model.decode_step(params, cache, tokens, pos, head=head)
+    return decode_step
 
 
 def train_state_specs(model: Model, optimizer: AdamW, *,

@@ -1,25 +1,29 @@
-"""GQA/MQA and DeepSeek-style MLA attention for training and single-token
-decode (PyTorch port of ``repro.models.attention``: ``gqa_specs``,
-``gqa_qkv``, ``blockwise_attention``, ``gqa_attend``, ``gqa_train``,
-``gqa_decode``, ``mla_specs``, ``mla_project_q``, ``mla_latents``,
-``mla_train``, ``mla_decode``).
+"""GQA/MQA and DeepSeek-style MLA attention for training, prefill and
+single-token decode (PyTorch port of ``repro.models.attention``:
+``gqa_specs``, ``gqa_qkv``, ``blockwise_attention`` with its ``pairs``
+schedule, ``gqa_attend``, ``gqa_train``, ``gqa_prefill``, ``gqa_decode``,
+``mla_specs``, ``mla_project_q``, ``mla_latents``, ``mla_train``,
+``mla_prefill``, ``mla_decode``).
 
-Two impls of each attention:
+Three impls of each attention (``IMPLS``):
 
 * ``kernel`` (default) — the hand-written Hopper kernels on a CUDA device
-  (``kernels.flash_attention`` for training, ``kernels.decode_attention`` for
-  decode), their plain versions on the CPU;
+  (``kernels.flash_attention`` for training and prefill,
+  ``kernels.decode_attention`` for decode), their plain versions on the CPU;
 * ``torch`` — plain ops, mirroring the JAX package's ``xla`` branch
-  (``blockwise_attention`` for training).
+  (``blockwise_attention`` over every block pair);
+* ``torch_pairs`` — the JAX ``xla_pairs`` branch: ``blockwise_attention``
+  over the lower-triangular block pairs only.  Decode has one plain path,
+  which both plain impls take.
 
-Local (sliding-window) layers keep a ring-buffer cache of size ``window``.
+Local (sliding-window) layers keep a ring-buffer cache of size ``window``
+(slot ``pos % window``).  A windowed prefill cache is the last ``window``
+keys in order, as JAX keeps it, so decode continues from it at the right
+slots only when the prompt is at most ``window`` long or a multiple of it.
 
-MLA runs no kernel, as in JAX: training expands K/V from the latents and runs
-the plain ``blockwise_attention`` under every impl; decode is the absorbed
-form in plain ops over a cache of the latents only.
-
-Prefill and the ``pairs`` schedule of ``blockwise_attention`` come in a later
-slice.
+MLA runs no kernel, as in JAX: training and prefill expand K/V from the
+latents and run the plain ``blockwise_attention`` under every impl; decode
+is the absorbed form in plain ops over a cache of the latents only.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from .layers import apply_rope
 from .param import ParamSpec
 
 NEG_INF = -1e30
+IMPLS = ("kernel", "torch", "torch_pairs")
 
 
 # ------------------------------------------------------------------ specs
@@ -134,10 +139,15 @@ def _online_block(acc, m, l, q, k, v, mask, scale):
 
 def blockwise_attention(q, k, v, *, scale: float, causal: bool = True,
                         window: int = 0, q_block: int = 512,
-                        kv_block: int = 512) -> torch.Tensor:
+                        kv_block: int = 512, pairs: bool = False,
+                        q_offset: int = 0) -> torch.Tensor:
     """q (B,S,H,D), k/v (B,T,Hkv,D) -> (B,S,H,D); never materializes SxT.
 
-    Every (q block, kv block) pair is computed, as in the JAX ``xla`` path.
+    Queries sit at positions ``arange(S) + q_offset``, keys at ``arange(T)``.
+    Every (q block, kv block) pair is computed, as in the JAX ``xla`` path,
+    unless ``pairs``: then, when also ``causal``, ``S == T`` and the blocks
+    are equal, only the lower-triangular pairs are (JAX's ``xla_pairs``),
+    and ``q_offset`` is ignored there, as JAX ignores it.
     """
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -154,23 +164,21 @@ def blockwise_attention(q, k, v, *, scale: float, causal: bool = True,
         v_p = F.pad(v, (0, 0, 0, 0, 0, T_pad - T))
         out = blockwise_attention(q_p, k_p, v_p, scale=scale, causal=True,
                                   window=window, q_block=q_block,
-                                  kv_block=kv_block)
+                                  kv_block=kv_block, pairs=pairs,
+                                  q_offset=q_offset)
         return out[:, :S]
     nq, nk = S // q_block, T // kv_block
     qg = q.reshape(B, nq, q_block, Hkv, G, D)
     kg = k.reshape(B, nk, kv_block, Hkv, D)
     vg = v.reshape(B, nk, kv_block, Hkv, D)
-    q_pos_all = torch.arange(S, device=q.device)
+    if pairs and causal and S == T and q_block == kv_block:
+        return _pairs_attention(qg, kg, vg, scale, window, q_block, nq)
+    q_pos_all = torch.arange(S, device=q.device) + q_offset
     k_pos = torch.arange(T, device=q.device)
     outs = []
     for qi in range(nq):
         q_pos = q_pos_all[qi * q_block:(qi + 1) * q_block]
-        acc = torch.zeros((B, Hkv, G, q_block, D), dtype=torch.float32,
-                          device=q.device)
-        m = torch.full((B, Hkv, G, q_block), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-        l = torch.zeros((B, Hkv, G, q_block), dtype=torch.float32,
-                        device=q.device)
+        acc, m, l = _initial_state(B, Hkv, G, q_block, D, q.device)
         for ki in range(nk):
             kp = k_pos[ki * kv_block:(ki + 1) * kv_block]
             mask = _block_mask(q_pos, kp, window) if (causal or window) else \
@@ -178,22 +186,58 @@ def blockwise_attention(q, k, v, *, scale: float, causal: bool = True,
             acc, m, l = _online_block(acc, m, l, qg[:, qi], kg[:, ki],
                                       vg[:, ki], mask, scale)
         outs.append(acc / torch.clamp(l[..., None], min=1e-30))
-    # nq x (B, Hkv, G, q_block, D) -> (B, S, H, D)
-    out = torch.stack(outs, dim=1)                     # (B, nq, Hkv, G, qb, D)
-    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, Hkv * G, D)
-    return out.to(q.dtype)
+    return _assemble(outs, q.dtype)
+
+
+def _initial_state(B, Hkv, G, blk, D, device):
+    """The online softmax's (acc, m, l) before a q block's first kv block."""
+    return (torch.zeros((B, Hkv, G, blk, D), dtype=torch.float32,
+                        device=device),
+            torch.full((B, Hkv, G, blk), NEG_INF, dtype=torch.float32,
+                       device=device),
+            torch.zeros((B, Hkv, G, blk), dtype=torch.float32, device=device))
+
+
+def _assemble(outs, dtype):
+    """nq x (B, Hkv, G, blk, D) -> (B, S, H, D) in ``dtype``."""
+    out = torch.stack(outs, dim=1)                     # (B, nq, Hkv, G, blk, D)
+    B, nq, Hkv, G, blk, D = out.shape
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(B, nq * blk, Hkv * G, D)
+    return out.to(dtype)
+
+
+def _pairs_attention(qg, kg, vg, scale, window, blk, nb):
+    """The causal path over the lower-triangular block pairs only (JAX's
+    ``_pairs_attention``): pairs in row-major order (qi ascending, ki
+    ascending within qi), the online-softmax state carried for every q
+    block, each finalized before the next row starts.  The states are a
+    list, one entry a q block, so that autograd sees no in-place write."""
+    B, Hkv, G, D = qg.shape[0], qg.shape[3], qg.shape[4], qg.shape[5]
+    pos = torch.arange(nb * blk, device=qg.device)
+    state = [_initial_state(B, Hkv, G, blk, D, qg.device) for _ in range(nb)]
+    for qi, ki in [(qi, ki) for qi in range(nb) for ki in range(qi + 1)]:
+        mask = _block_mask(pos[qi * blk:(qi + 1) * blk],
+                           pos[ki * blk:(ki + 1) * blk], window)
+        state[qi] = _online_block(*state[qi], qg[:, qi], kg[:, ki], vg[:, ki],
+                                  mask, scale)
+    return _assemble([acc / torch.clamp(l[..., None], min=1e-30)
+                      for acc, _, l in state], qg.dtype)
 
 
 # ------------------------------------------------------------ public paths
-def gqa_attend(q, k, v, cfg, *, window: int = 0,
-               impl: str = "kernel") -> torch.Tensor:
+def gqa_attend(q, k, v, cfg, *, window: int = 0, impl: str = "kernel",
+               q_offset: int = 0) -> torch.Tensor:
+    """Causal attention by ``impl``; the kernel ignores ``q_offset``, as
+    JAX's pallas branch does."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "kernel":
         return flash_attention(q, k, v, causal=True, window=window,
                                scale=scale)
-    if impl == "torch":
+    if impl in ("torch", "torch_pairs"):
         return blockwise_attention(q, k, v, scale=scale, causal=True,
-                                   window=window)
+                                   window=window,
+                                   pairs=(impl == "torch_pairs"),
+                                   q_offset=q_offset)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -202,6 +246,18 @@ def gqa_train(params, x, positions, cfg, *, window: int = 0,
     q, k, v = gqa_qkv(params, x, positions, cfg)
     out = gqa_attend(q, k, v, cfg, window=window, impl=impl)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def gqa_prefill(params, x, positions, cfg, *, window: int = 0,
+                impl: str = "kernel"):
+    """Forward and the K/V cache this segment produces: (B,S,Hkv,D) each,
+    or, with a window, the last ``window`` keys in order (``k[:, -window:]``,
+    as JAX keeps them; not the ring buffer's slots ``p % window``)."""
+    q, k, v = gqa_qkv(params, x, positions, cfg)
+    out = gqa_attend(q, k, v, cfg, window=window, impl=impl)
+    if window:
+        k, v = k[:, -window:], v[:, -window:]
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), (k, v)
 
 
 def _attend_torch(q, cache_k, cache_v, pos: int, slot: int, window: int):
@@ -242,7 +298,7 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg, *, window: int = 0,
     if impl == "kernel":
         out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v, pos=pos,
                                window=window)[:, None]
-    elif impl == "torch":
+    elif impl in ("torch", "torch_pairs"):
         out = _attend_torch(q, cache_k, cache_v, pos, slot, window)
     else:
         raise ValueError(f"unknown attention impl {impl!r}")
@@ -283,9 +339,10 @@ def mla_train(params, x, positions, cfg, *, impl: str = "kernel"
               ) -> torch.Tensor:
     """Training path: K/V expanded from the latents, then the plain
     ``blockwise_attention`` under every impl, as JAX runs it (no flash
-    kernel at MLA's head dims).  V is padded up to the QK head dim so that
-    one attention call serves both, and the output sliced back."""
-    if impl not in ("kernel", "torch"):
+    kernel at MLA's head dims), over the lower-triangular block pairs only
+    under ``torch_pairs``.  V is padded up to the QK head dim so that one
+    attention call serves both, and the output sliced back."""
+    if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}")
     m = cfg.mla
     q_nope, q_rope = mla_project_q(params, x, positions, cfg)
@@ -298,9 +355,16 @@ def mla_train(params, x, positions, cfg, *, impl: str = "kernel"
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     v_pad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
-    out = blockwise_attention(q, k, v_pad, scale=scale, causal=True)
+    out = blockwise_attention(q, k, v_pad, scale=scale, causal=True,
+                              pairs=(impl == "torch_pairs"))
     out = out[..., : m.v_head_dim]
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def mla_prefill(params, x, positions, cfg, *, impl: str = "kernel"):
+    """Forward and the latent cache: (c_kv (B,S,r), k_rope (B,S,rd))."""
+    out = mla_train(params, x, positions, cfg, impl=impl)
+    return out, mla_latents(params, x, positions, cfg)
 
 
 def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):

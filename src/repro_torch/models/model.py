@@ -1,7 +1,7 @@
-"""Model assembly for training and decode (PyTorch port of
+"""Model assembly for training, prefill and decode (PyTorch port of
 ``repro.models.model``).
 
-Carried through ``loss_fn`` and ``decode_step``:
+Carried through ``loss_fn``, ``prefill`` and ``decode_step``:
 
     dense   - starcoder2 / qwen2 / gemma / gemma3 / musicgen / phi3v backbones
               (with the audio and vlm families)
@@ -17,19 +17,28 @@ with ``mtp_depth``, also 0.3 times the multi-token prediction loss,
 ``metrics["mtp"]``.  MLA layers decode over a cache of latents (``ckv``,
 ``kr``) in place of K and V.
 
+``prefill`` runs a prompt through the layers without ``maybe_remat`` and
+returns the last token's logits and a cache of the prompt's length, with
+the leaf paths, shapes and dtypes of ``cache_specs(B, S)``; decode continues
+from it at position S once its time axes are padded to the decode length.
+Its attention goes through the flash kernel under ``kernel``; its mamba
+layers scan through the plain ``ssd_chunked`` under every impl, as JAX's
+``ssm_lib_prefill`` does.
+
 Parameters are a nested dict of tensors with the JAX package's paths
 (``blocks/attn/wq``), stacked with a leading layer axis as there; a Python
 loop over the layer index (or the period, for local/global patterns and
 zamba2) takes the place of ``lax.scan``, with ``maybe_remat`` around each
-iteration as JAX puts it around the scan body.  zamba2's shared attention
-block is closed over, not stacked, so its gradient sums over every
+training iteration as JAX puts it around the scan body.  zamba2's shared
+attention block is closed over, not stacked, so its gradient sums over every
 invocation.
 
 API:
-    m = build_model(cfg)
+    m = build_model(cfg)                            # attn_impl: attention.IMPLS
     specs  = m.param_specs()                        # ParamSpec tree
     params = m.init(generator, device)              # real tensors
     loss, metrics = m.loss_fn(params, batch)        # train forward
+    logits, cache = m.prefill(params, batch)        # last logits, cache of S
     cache  = m.init_cache(batch, max_len, device)
     head   = m.logits_weight(params)                # fp32, once per params
     logits, cache = m.decode_step(params, cache, tokens, pos, head=head)
@@ -42,6 +51,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from . import attention as attn
@@ -83,6 +93,8 @@ class Model:
         if cfg.family != "ssm" and cfg.attention not in ("gqa", "mla"):
             raise ValueError(f"{cfg.name}: unknown attention "
                              f"{cfg.attention!r}")
+        if attn_impl not in attn.IMPLS:
+            raise ValueError(f"unknown attention impl {attn_impl!r}")
         self.cfg = cfg
         self.attn_impl = attn_impl
         if cfg.family == "hybrid":      # zamba2's shared attention block
@@ -209,9 +221,12 @@ class Model:
         return h + out, aux
 
     def _ssm_block(self, p, h):
+        # both plain attention impls scan through ssd_chunked, as JAX maps
+        # every impl but pallas to xla
         hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
-        return h + ssm_lib.mamba2_forward(p["ssm"], hn, self.cfg,
-                                          impl=self.attn_impl)
+        return h + ssm_lib.mamba2_forward(
+            p["ssm"], hn, self.cfg,
+            impl="kernel" if self.attn_impl == "kernel" else "torch")
 
     def _shared_attn_block(self, p, h, positions):
         cfg = self.cfg
@@ -367,6 +382,113 @@ class Model:
         mask = batch.get("loss_mask")
         return softmax_cross_entropy(logits, targets[:, 1:],
                                      mask[:, 1:] if mask is not None else None)
+
+    # ----------------------------------------------------------------- prefill
+    def prefill(self, params, batch, *, head: Optional[torch.Tensor] = None):
+        """A prompt through the layers -> (the last token's logits, the
+        cache of length S): tokens (B,S) or (B,K,S) [, image_embeds], as
+        ``loss_fn`` takes them.  Logits are (B,V), or (B,K,V) with
+        codebooks; ``head`` is ``logits_weight(params)``, if the caller has
+        it.  The norm and logits are taken of the last position only."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape[0], tokens.shape[-1]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        h = self._embed_tokens(params, batch)
+        cache = self.init_cache(B, S, h.device)
+        h = self._backbone_with_cache(params, h, positions, cache)
+        h = rmsnorm(params["final_ln"], h[:, -1:], cfg.norm_eps)
+        return self._logits(params, h, head)[:, 0], cache
+
+    def _dense_prefill(self, p, h, positions, kind: str):
+        """One layer's forward -> (h, its cache: (k, v), or the MLA
+        latents (ckv, kr))."""
+        cfg = self.cfg
+        window = cfg.sliding_window if kind == "L" else 0
+        hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
+        if cfg.attention == "mla":
+            a, kv = attn.mla_prefill(p["attn"], hn, positions, cfg,
+                                     impl=self.attn_impl)
+        else:
+            a, kv = attn.gqa_prefill(p["attn"], hn, positions, cfg,
+                                     window=window, impl=self.attn_impl)
+        h = h + a
+        hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
+        if "moe" in p:
+            return h + moe_lib.moe_apply(p["moe"], hn, cfg)[0], kv
+        return h + mlp(p["mlp"], hn, cfg.mlp), kv
+
+    def _backbone_with_cache(self, params, h, positions, cache):
+        """The layers' forward, each layer's cache written into its slot of
+        ``cache`` (``init_cache(B, S)``) -> h."""
+        cfg = self.cfg
+
+        def put(leaves, at, parts):
+            for leaf, part in zip(leaves, parts):
+                leaf[at].copy_(part)
+
+        if cfg.family == "ssm":
+            for i, p in enumerate(_unbind(params["blocks"])):
+                hn = rmsnorm(p["ln"], h, cfg.norm_eps)
+                out, state, conv = ssm_lib_prefill(p["ssm"], hn, cfg,
+                                                   self.attn_impl)
+                h = h + out
+                put((cache["state"], cache["conv"]), i, (state, conv))
+            return h
+        if cfg.family == "hybrid":
+            shared = params["shared_attn"]
+            for n, p in enumerate(_unbind(params["mamba"])):
+                hn = rmsnorm(shared["ln1"], h, cfg.norm_eps)
+                a, kv = attn.gqa_prefill(shared["attn"], hn, positions,
+                                         self.shared_cfg, impl=self.attn_impl)
+                h = h + a
+                put((cache["attn_k"], cache["attn_v"]), n, kv)
+                if "mlp" in shared:
+                    hn = rmsnorm(shared["ln2"], h, cfg.norm_eps)
+                    h = h + mlp(shared["mlp"], hn, cfg.mlp)
+                for i, layer in enumerate(_unbind(p)):
+                    hn = rmsnorm(layer["ln"], h, cfg.norm_eps)
+                    out, state, conv = ssm_lib_prefill(layer["ssm"], hn, cfg,
+                                                       self.attn_impl)
+                    h = h + out
+                    put((cache["state"], cache["conv"]), (n, i),
+                        (state, conv))
+            return h
+        if cfg.family == "moe":
+            names = ("ckv", "kr") if cfg.attention == "mla" else ("k", "v")
+            for blocks, layers in (("dense_blocks", "dense_layers"),
+                                   ("moe_blocks", "moe_layers")):
+                for i, p in enumerate(_unbind(params[blocks])
+                                      if blocks in params else ()):
+                    h, kv = self._dense_prefill(p, h, positions, "G")
+                    put([cache[layers][name] for name in names], i, kv)
+            return h
+        if cfg.local_global_pattern:
+            pat = cfg.local_global_pattern
+            local, glob = cache["periods_local"], cache["periods_global"]
+            for n, p in enumerate(_unbind(params["periods"])):
+                li = gi = 0
+                for layer, kind in zip(_unbind(p), pat):
+                    h, kv = self._dense_prefill(layer, h, positions, kind)
+                    if kind == "L":
+                        put((local["k"], local["v"]), (n, li), kv)
+                        li += 1
+                    else:
+                        put((glob["k"], glob["v"]), (n, gi), kv)
+                        gi += 1
+            if "tail" in params:
+                tail = cache["tail"]
+                for i, p in enumerate(_unbind(params["tail"])):
+                    h, kv = self._dense_prefill(p, h, positions, pat[0])
+                    put((tail["k"], tail["v"]), i, kv)
+            return h
+        kind = "L" if cfg.sliding_window else "G"
+        layers = cache["layers"]
+        for i, p in enumerate(_unbind(params["blocks"])):
+            h, kv = self._dense_prefill(p, h, positions, kind)
+            put((layers["k"], layers["v"]), i, kv)
+        return h
 
     # ---------------------------------------------------------------- caches
     def cache_specs(self, batch: int, max_len: int):
@@ -593,6 +715,34 @@ class Model:
                 h = self._dense_step(_index(params["tail"], i), h,
                                      tail["k"][i], tail["v"][i], pos, pat[0])
         return h
+
+
+def ssm_lib_prefill(p, hn, cfg, attn_impl):
+    """Mamba2 prefill: the layer's forward, its final SSM state (B,nh,N,P)
+    in fp32 and its conv tail (B,K-1,conv_dim), the last K-1 inputs of the
+    conv before it, left-padded with zeros when S < K-1.  The scan runs
+    through the plain ``ssd_chunked`` under every impl, as in JAX, which
+    takes ``attn_impl`` and does not use it either."""
+    s = cfg.ssm
+    zxbcdt = hn @ p["in_proj"]
+    z, x, Bm, Cm, dt = ssm_lib._split_proj(zxbcdt, cfg)
+    xbc_raw = torch.cat([x, Bm, Cm], dim=-1)
+    K = s.conv_kernel
+    conv_tail = F.pad(xbc_raw, (0, 0, max(0, K - 1 - xbc_raw.shape[1]), 0)
+                      )[:, -(K - 1):]
+    xbc = ssm_lib._causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    d_in, G, N, nh = cfg.expand_dim, s.n_groups, s.d_state, cfg.ssm_heads
+    B, S = hn.shape[:2]
+    xh = xbc[..., :d_in].reshape(B, S, nh, s.head_dim)
+    Bh = xbc[..., d_in:d_in + G * N].reshape(B, S, G, N)
+    Ch = xbc[..., d_in + G * N:].reshape(B, S, G, N)
+    dtf = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h_final = ssm_lib.ssd_chunked(xh, dtf, A, Bh, Ch, chunk=s.chunk_size)
+    y = y + xh * p["D"][:, None].to(xh.dtype)
+    y = y.reshape(B, S, d_in)
+    y = ssm_lib._gated_norm(p["norm"], y, z, cfg.norm_eps)
+    return y @ p["out_proj"], h_final, conv_tail
 
 
 def build_model(cfg: ModelConfig, attn_impl: str = "kernel") -> Model:
