@@ -102,6 +102,14 @@ code is not 0:
    kernel and through the plain ``torch`` attention agree;
 5. resume: an injected ``HostFailure`` at step 5 of a smoke-config run on the
    card, and its resumption from the lake's checkpoint;
+5a. dist: the distributed path in an NCCL world of one (``dist``): phase
+   4's checkpoint restored bit for bit onto a (1, 1) ``DeviceMesh``
+   (``dist_restore``, right after phase 4, before its state trains on);
+   the train phase's job through ``Trainer`` on the mesh, the state as
+   DTensors, its losses held against phase 4's, 2 x 18 flash launches a
+   step; the int8 all-reduce on one step's gradients against numpy; the
+   served gemma-2b on the mesh giving phase 3's greedy tokens through the
+   decode kernel.  Each group is destroyed after its part;
 6. trace: where one full-width decode step and one full-width train step
    spend their time on the device (``torch.profiler``);
 7. train mamba2: ``Trainer.run`` on full-width mamba2-1.3b (48 layers, bf16,
@@ -1103,6 +1111,7 @@ def serve(card: str, arch: str, layers=None, tag: str = "serve"):
         rel, steps = _decode_kernel_vs_torch(srv, out, held), total
     prefill = (_prefill_vs_decode(srv, out, held) if cfg.attention != "mla"
                else "in [mla_decode_vs_forward]")
+    srv.served = (prompts, out)      # the [dist] phase serves them again
     _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
          reduced=_reduced(cfg),
          d_model=cfg.d_model, batch=job.batch, prompt_len=job.prompt_len,
@@ -1461,6 +1470,187 @@ def resume(card: str):
     _say("resume", card=card, failed_at=5, latest_checkpoint=saved,
          resumed_at=resumed, final_step=out["final_step"],
          final_loss=out["final_loss"])
+
+
+# ----------------------------------------------------------------- phase 5a
+def _quantized_mean_numpy(x: np.ndarray) -> np.ndarray:
+    """JAX's ``quantized_psum`` over one shard, in numpy fp32: the scale
+    ``(absmax + 1e-12) / 127``, values rounded half to even and clipped to
+    +-127, then ``total * (scale_sum / n) / n`` with n = 1."""
+    scale = np.float32(np.abs(x).max() + np.float32(1e-12)) / np.float32(127)
+    q = np.clip(np.rint(x / scale), -127, 127).astype(np.int32)
+    return (q.astype(np.float32) * (scale / np.float32(1))) / np.float32(1)
+
+
+class _Unwritten(CheckpointManager):
+    """A checkpoint manager whose ``save`` gathers the state and copies it
+    to the host, as any save does, but writes nothing into the lake: the
+    [dist] phase restores [train]'s checkpoint instead of a 25 GB one of
+    its own."""
+
+    def _write(self, leaves, step):
+        self.saved_steps.append(step)
+
+
+@contextlib.contextmanager
+def _world_of_one():
+    """An NCCL process group of one rank on card 0, from a ``HashStore`` (no
+    port), destroyed on leaving, so the phases after it run meshless."""
+    import torch.distributed as tdist
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        tdist.destroy_process_group()
+
+
+def dist_restore(ckpt, state) -> dict:
+    """[dist]'s elastic restore, run while ``state`` is still the one
+    ``ckpt`` saved (the phases after [train] train on it in place): the
+    checkpoint [train] saved without a mesh restored onto the (1, 1) mesh
+    of an NCCL world of one, every leaf bit for bit ``state`` ([train]
+    itself holds the restore without a mesh).  -> its seconds."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.steps import state_placements
+    t_phase = time.perf_counter()
+    with _world_of_one():
+        trainer = Trainer(TRAIN_JOB)
+        mesh = trainer.mesh
+        t0 = time.perf_counter()
+        back = ckpt.restore(
+            abstract(train_state_specs(trainer.model, trainer.opt)),
+            device="cuda", mesh=mesh, shardings=state_placements(
+                trainer.model, trainer.opt, mesh, trainer.rules))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want, got = dict(named_leaves(state)), dict(named_leaves(back))
+        exact = got.keys() == want.keys() and all(
+            isinstance(t, DTensor) and t.to_local().dtype == want[k].dtype
+            and torch.equal(t.to_local(), want[k]) for k, t in got.items())
+        del back, got, want, trainer
+    torch.cuda.empty_cache()
+    if not exact:
+        raise AssertionError("[dist] [train]'s checkpoint restored onto the "
+                             "mesh differs from [train]'s state")
+    return {"restore_s": restore_s, "s": time.perf_counter() - t_phase}
+
+
+def dist(card: str, train_ref=None, served=None, restored=None):
+    """[dist]: the distributed path in an NCCL world of one (one card; NCCL
+    puts no two ranks on one device, so no multi-rank run is made here).
+    ``restored`` is :func:`dist_restore`'s result, the elastic restore.
+    Then full-width gemma-2b through ``Trainer`` on the (1, 1) mesh, as
+    DTensors placed by the train rules: ``TRAIN_JOB``'s 8 lake-fed steps,
+    each loss held against ``[train]``'s (``train_ref``) at the bf16
+    ``TOL``, exactly 2 x 18 flash launches a step, every state leaf on the
+    card, and its final save gathered to the host but not written
+    (``_Unwritten``); the int8 all-reduce once over the group on one step's
+    gradients in fp32, held against numpy's version of JAX's formula on four
+    leaves within 1e-6 of each leaf's largest value; then
+    ``Server.generate`` on the mesh from the served params' seed, whose
+    greedy tokens must be ``[serve]``'s (``served``), through the decode
+    kernel.  Without ``train_ref``, ``restored`` and ``served``, fresh
+    meshless runs make them."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.collectives import (collective_wire_bytes,
+                                                     make_quantized_allreduce)
+    job = TRAIN_JOB
+    sjob = ServeJob(arch="gemma-2b", smoke=False, batch=4, prompt_len=32,
+                    max_new_tokens=32)
+    if restored is None:
+        ref = Trainer(job, ckpt=CheckpointManager(MemoryProvider()))
+        out = ref.run(restore=False)
+        train_ref = {"losses": [h["loss"] for h in out["history"]],
+                     "step_s": statistics.median(h["sec"] for h in
+                                                 out["history"][1:])}
+        restored = dist_restore(ref.ckpt, out["state"])
+        del ref, out
+    if served is None:
+        srv = Server(sjob)
+        prompts = np.random.default_rng(0).integers(
+            0, srv.cfg.vocab_size, (sjob.batch, sjob.prompt_len)).astype(
+                np.int32)
+        served = (prompts, srv.generate(prompts))
+        del srv
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()     # the references above not counted
+    with _world_of_one():
+        trainer = Trainer(job, ckpt=_Unwritten(MemoryProvider(), keep=1))
+        mesh = trainer.mesh
+        _reset_counts()
+        out = trainer.run(restore=False)
+        counts = _counts()
+        _check_counts(counts, train_launches(trainer.cfg, job.steps), "dist")
+        losses = [h["loss"] for h in out["history"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_ref["losses"])]
+        if len(losses) != job.steps or not max(rel) <= TOL[torch.bfloat16]:
+            raise AssertionError(f"[dist] losses {losses} vs [train] "
+                                 f"{train_ref['losses']}")
+        if trainer.ckpt.saved_steps != [job.steps]:
+            raise AssertionError(f"[dist] saves {trainer.ckpt.saved_steps}")
+        state = out["state"]
+        if not all(isinstance(t, DTensor) and t.to_local().is_cuda
+                   for _, t in named_leaves(state)):
+            raise AssertionError("[dist] a state leaf is not a DTensor on "
+                                 "the card")
+        step_s = statistics.median(h["sec"] for h in out["history"][1:])
+
+        # the int8 all-reduce on one step's gradients, in fp32
+        batch = next(trainer._batches())
+        with trainer.model.spmd():
+            grads = _loss_and_grads(trainer.model, state["params"], batch)[2]
+        paths = [p for p, _ in named_leaves(state["params"])]
+        grads = unflatten((p, g.float()) for p, g in zip(paths, grads))
+        del state, out, trainer
+        allreduce = make_quantized_allreduce(mesh, "data")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduced_tree = allreduce(grads)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) * 1e3
+        ar_err = 0.0
+        for path in ("blocks/attn/wq", "blocks/attn/wk", "blocks/ln1",
+                     "final_ln"):
+            g = dict(named_leaves(grads))[path].to_local().cpu().numpy()
+            got = dict(named_leaves(reduced_tree))[path].cpu().numpy()
+            err = np.abs(got - _quantized_mean_numpy(g)).max() / \
+                np.abs(g).max()
+            ar_err = max(ar_err, float(err))
+        if not ar_err <= 1e-6:
+            raise AssertionError(f"[dist] int8 all-reduce off by {ar_err}")
+        wire = (collective_wire_bytes(grads, True),
+                collective_wire_bytes(grads, False))
+        del grads, reduced_tree, batch
+        torch.cuda.empty_cache()
+
+        # serving on the mesh from the served params' seed
+        srv = Server(sjob)
+        _reset_counts()
+        tokens = srv.generate(served[0])
+        serve_counts = _counts()
+        total = sjob.prompt_len + sjob.max_new_tokens
+        _check_counts(serve_counts, {"decode_attention":
+                                     _attention_layers(srv.cfg) * total},
+                      "dist serve")
+        if not np.array_equal(tokens, served[1]):
+            raise AssertionError("[dist] the mesh's greedy tokens differ "
+                                 "from [serve]'s")
+        tok_s = srv.throughput()
+        del srv
+    torch.cuda.empty_cache()
+    _say("dist", card=card, mesh=[1, 1], launches={
+             "flash_attention": counts["flash_attention"],
+             "decode_attention": serve_counts["decode_attention"]},
+         loss_rel_max=max(rel), step_s=step_s, train_step_s=train_ref[
+             "step_s"], allreduce_ms=ar_ms, allreduce_err=ar_err,
+         wire_bytes=wire, restore_exact=True,
+         restore_s=restored["restore_s"], tokens_equal=True,
+         tokens_per_s=tok_s,
+         phase_s=time.perf_counter() - t_phase + restored["s"])
+    return counts["flash_attention"], serve_counts["decode_attention"]
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2424,6 +2614,7 @@ def main() -> None:
     feed_launches, feed_err = image_feed(card)
     torch.cuda.empty_cache()
     srv, launches = serve(card, "gemma-2b")
+    served = srv.served
     trace(srv, card)
     prefill_flash, prefill_decode = prefill(card, srv)
     launches += prefill_decode
@@ -2431,10 +2622,17 @@ def main() -> None:
     torch.cuda.empty_cache()
     trainer, state, batch, counts = train(card)
     flash_launches = counts["flash_attention"] + prefill_flash
+    train_ref = {"losses": [h["loss"] for h in trainer.history],
+                 "step_s": statistics.median(h["sec"] for h in
+                                             trainer.history[1:])}
+    restored = dist_restore(trainer.ckpt, state)
     resume(card)
     trace_train(trainer, state, batch, card)
     del trainer, state, batch
     torch.cuda.empty_cache()
+    dist_flash, dist_decode = dist(card, train_ref, served, restored)
+    flash_launches += dist_flash
+    launches += dist_decode
     lake = zipf_lake(MAMBA2_JOB, get_arch(MAMBA2_JOB.arch).vocab_size)
     trainer, state, batch, counts = train(card, MAMBA2_JOB, "train_mamba2",
                                           lake)

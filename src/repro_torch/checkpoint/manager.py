@@ -8,7 +8,14 @@ the same bytes and the same manifest (``dtype`` named as numpy names it,
 one package restores in the other.  The leaves are copied to the host when
 ``save`` is called; the write and the commit run on a background thread.
 
-Restore places each leaf on the device the caller names.
+Restore places each leaf on the device the caller names, or, with
+``shardings`` (a tree of DTensor placements) and a ``mesh``, onto that mesh:
+rank 0 reads each leaf and scatters its shards, so a state saved by a world
+of one size restores on a world of another, or on none (the elastic
+restore).  ``save`` gathers a DTensor state whole (``full_tensor``, a
+collective every rank joins) and rank 0 alone writes it; the other ranks
+keep no record of the step, and ``latest_step(mesh=...)`` answers rank 0's
+on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.core.dataset import Dataset
 from repro_torch.core.storage import StorageProvider
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.param import named_leaves, unflatten
 
 _NUMPY_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -37,6 +45,9 @@ def _host_bytes(t: torch.Tensor) -> Tuple[np.ndarray, str, List[int]]:
     The bytes are a private copy, even of a CPU tensor: the train step
     updates the state in place while the background thread writes it.
     """
+    if is_dtensor(t):
+        raise TypeError("a DTensor leaf is gathered (full_tensor) before it "
+                        "is written")
     if t.dtype not in _NUMPY_NAME:
         raise TypeError(f"no checkpoint format for {t.dtype}")
     host = t.detach().to("cpu", copy=True).contiguous()
@@ -80,7 +91,16 @@ class CheckpointManager:
         self.wait()
         if self._error:
             raise self._error
-        host_leaves = [(k, *_host_bytes(v)) for k, v in named_leaves(state)]
+        leaves = list(named_leaves(state))
+        writer = not any(is_dtensor(v) for _, v in leaves) or \
+            torch.distributed.get_rank() == 0
+        host_leaves = []
+        for k, v in leaves:             # one leaf whole on the device at once
+            v = v.full_tensor() if is_dtensor(v) else v
+            if writer:
+                host_leaves.append((k, *_host_bytes(v)))
+        if not writer:
+            return
         if blocking or not self.async_save:
             self._write(host_leaves, step)
         else:
@@ -124,14 +144,44 @@ class CheckpointManager:
             raise err
 
     # --------------------------------------------------------------- restore
-    def latest_step(self) -> Optional[int]:
+    def latest_step(self, mesh=None) -> Optional[int]:
+        """The newest saved step; with ``mesh``, rank 0's on every rank."""
         self.wait()
-        return self.saved_steps[-1] if self.saved_steps else None
+        latest = self.saved_steps[-1] if self.saved_steps else None
+        if mesh is None:
+            return latest
+        box = [latest]
+        torch.distributed.broadcast_object_list(box, src=0)
+        return box[0]
 
-    def restore(self, like, step: Optional[int] = None, device="cpu"):
+    def restore(self, like, step: Optional[int] = None, device="cpu",
+                shardings=None, mesh=None):
         """Rebuild the state tree.  ``like`` gives its structure (a nested
         dict whose leaf paths name the leaves, e.g. of tensors on the meta
-        device); every leaf is placed on ``device``."""
+        device); every leaf is placed on ``device``.  With ``shardings`` (a
+        tree of DTensor placements like ``like``) and ``mesh``, every rank
+        calls this: rank 0 reads the leaves and each becomes a DTensor on
+        ``mesh``, every rank given its shards."""
+        if shardings is None:
+            manifest = self._manifest(step)
+            return unflatten((key, self._read(manifest, key, device))
+                             for key, _ in named_leaves(like))
+        from torch.distributed.tensor import distribute_tensor
+        step = step if step is not None else self.latest_step(mesh)
+        first = torch.distributed.get_rank() == 0
+        manifest = self._manifest(step) if first else None
+        out = []
+        for (key, leaf), (_, placements) in zip(named_leaves(like),
+                                                named_leaves(shardings)):
+            whole = self._read(manifest, key, device) if first else \
+                torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+            out.append((key, distribute_tensor(whole, mesh, placements,
+                                               src_data_rank=0)))
+        return unflatten(out)
+
+    def _manifest(self, step: Optional[int]) -> Dict[str, dict]:
+        """Leaf key -> its row, dtype and shape, of ``step`` (the latest if
+        None)."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
@@ -139,12 +189,10 @@ class CheckpointManager:
         raw = self.ds.storage.get_or_none(f"manifests/step_{step}.json")
         if raw is None:
             raise FileNotFoundError(f"no manifest for step {step}")
-        manifest = json.loads(raw.decode())
-        by_key: Dict[str, dict] = {m["key"]: m for m in manifest["leaves"]}
-        t = self.ds["leaves"]
-        out = []
-        for key, _ in named_leaves(like):
-            meta = by_key[key]
-            out.append((key, _leaf(t.read(meta["row"]), meta["dtype"],
-                                   meta["shape"], device)))
-        return unflatten(out)
+        return {m["key"]: m for m in json.loads(raw.decode())["leaves"]}
+
+    def _read(self, manifest: Dict[str, dict], key: str, device
+              ) -> torch.Tensor:
+        meta = manifest[key]
+        return _leaf(self.ds["leaves"].read(meta["row"]), meta["dtype"],
+                     meta["shape"], device)

@@ -9,6 +9,11 @@ so the next batch's copy overlaps the current train step; the consumer's
 stream waits on that copy's event before it uses the batch.  On the CPU a
 batch is ``torch.from_numpy``, nothing more.
 
+Under a mesh (``placements``: DTensor placements per key, as JAX's
+``shardings``), every rank builds the same global batch from the lake (same
+seed, same order), copies only its own slice to the device and wraps it with
+``DTensor.from_local``: nothing is sent between ranks.
+
 Multi-host note: each host feeds only its slice of the global batch
 (``host_slice``); in one process that slice is the whole batch.
 """
@@ -70,19 +75,42 @@ class DeviceFeeder:
     """
 
     def __init__(self, host_iter: Iterator[Dict[str, np.ndarray]],
-                 device, *, prefetch: int = 2) -> None:
+                 device, *, prefetch: int = 2, placements=None,
+                 mesh=None) -> None:
+        if (placements is None) != (mesh is None):
+            raise ValueError("placements and mesh go together")
         self.host_iter = host_iter
         self.device = torch.device(device)
         self.prefetch = max(1, prefetch)
+        self.placements = placements or {}
+        self.mesh = mesh
+
+    def _local(self, batch):
+        """Each array's slice on this rank (the whole array for a key with no
+        placements)."""
+        if self.mesh is None:
+            return batch
+        return {k: local_slice(v, self.placements[k], self.mesh)
+                if k in self.placements else v for k, v in batch.items()}
+
+    def _wrap(self, out):
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import DTensor, Replicate
+        rep = [Replicate()] * self.mesh.ndim
+        return {k: DTensor.from_local(v, self.mesh,
+                                      self.placements.get(k, rep),
+                                      run_check=False)
+                for k, v in out.items()}
 
     def _put_cpu(self, batch):
         return {k: torch.from_numpy(np.ascontiguousarray(v))
-                for k, v in batch.items()}
+                for k, v in self._local(batch).items()}
 
     def _put_cuda(self, batch, stream: torch.cuda.Stream):
         """Pinned copies, sent on ``stream``; returns (tensors, event)."""
         pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-                  for k, v in batch.items()}
+                  for k, v in self._local(batch).items()}
         with torch.cuda.stream(stream):
             out = {k: v.to(self.device, non_blocking=True)
                    for k, v in pinned.items()}
@@ -143,12 +171,31 @@ class DeviceFeeder:
                         # memory made on the side stream, used on the
                         # consumer's
                         v.record_stream(consumer)
-                yield out
+                yield self._wrap(out)
         finally:
             # a consumer that stops early (the iterator closed or dropped)
             # lets the producer go: blocked on a full queue, it would hold
             # the host iterator, and all that refers to, for ever
             stop.set()
+
+
+def local_slice(a: np.ndarray, placements, mesh) -> np.ndarray:
+    """This rank's piece of ``a`` under DTensor ``placements`` on ``mesh``:
+    each ``Shard(d)`` mesh dim, in mesh order, splits dim ``d`` into equal
+    parts and keeps the one at this rank's coordinate (the split DTensor
+    makes, nested left to right)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if a.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {a.shape} does not split "
+                                 f"into {n}")
+            per = a.shape[p.dim] // n
+            a = np.take(a, range(coord[i] * per, (coord[i] + 1) * per),
+                        axis=p.dim)
+    return a
 
 
 def host_slice(batch: Dict[str, np.ndarray], process_index: int,

@@ -1,13 +1,44 @@
-"""Dependency-free work partitioners, copied from the JAX package's
-``distributed/sharding.py``: the lake's ``ScanPipeline.stream_sharded`` and
-serving tier assign chunk groups to workers with them.  The logical-axis
-mesh rules of that module come with ROADMAP Queue 1 item 16.
+"""Logical-axis -> mesh sharding rules, with divisibility safeguards (port of
+``repro.distributed.sharding``).
+
+Rules map logical axis names ("batch", "fsdp", "model", "heads", "vocab",
+"ff", "expert", "seq") to mesh axes.  ``fit_spec`` drops a mesh axis when a
+dimension does not divide it (e.g. starcoder2's 24 heads on a 16-wide model
+axis, granite's 49155 vocab) — GQA KV replication and unsharded odd vocabs
+are standard practice.
+
+Per-cell rule selection, as in JAX:
+* train/prefill/decode default: batch+fsdp -> ("pod","data"), tensor axes ->
+  "model", seq unsharded;
+* long_500k (global_batch=1): batch unshardable -> the KV/latent cache's
+  *sequence* axis takes ("pod","data") instead (sequence-parallel decode).
+
+A partition spec is a tuple of ``None | name | tuple of names`` per
+dimension (see :mod:`repro_torch.models.param`).  Every function here reads
+only a mesh's axis names and sizes, so the same rules serve a torch
+``DeviceMesh`` and a mesh description (``launch.mesh.MeshDesc``) of a
+production slice that no process group here could build.  ``placements_for``
+turns a spec into DTensor placements: mesh dim ``i`` gets ``Shard(d)`` when
+dimension ``d`` names its axis, ``Replicate()`` otherwise; a tuple entry
+shards one dimension over several mesh dims, which DTensor splits left to
+right, the first (major) mesh dim first: JAX's layout for the same entry.
+
+The dependency-free partitioners at the top (``shard_groups``, ``shard_of``)
+are reused by the lake's ``ScanPipeline.stream_sharded`` and serving tier to
+assign chunk groups to workers; the model's parameter module is imported
+inside the functions that need it, so that the lake does not load the
+models.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import torch
+
+
+# ---------------------------------------------------------------------------
+# dependency-free work partitioners
 
 def shard_groups(n_items: int, n_shards: int) -> List[List[int]]:
     """Partition ``range(n_items)`` across ``n_shards`` workers round-robin
@@ -31,3 +62,333 @@ def shard_of(item: int, n_shards: int) -> int:
     if n_shards <= 0:
         raise ValueError(f"invalid shard count {n_shards}")
     return item % n_shards
+
+
+# ---------------------------------------------------------------------------
+# mesh sharding rules
+
+def mesh_axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of a ``DeviceMesh`` or of a mesh description (an object
+    with ``axis_names`` and a ``shape`` mapping, as ``jax.sharding.Mesh``)."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+def make_rules(kind: str = "train", *, long_context: bool = False,
+               fsdp: bool = True, seq_shard=None) -> Dict[str, Any]:
+    """``seq_shard``: None | mesh-axis name for the cache sequence dim.
+    Decode with batch on (pod, data) can hand "model" to the cache sequence
+    (keeps 32k caches sharded when kv_heads < model axis)."""
+    from repro_torch.models.param import DEFAULT_RULES
+    rules = dict(DEFAULT_RULES)
+    if not fsdp:
+        rules["fsdp"] = None
+    if long_context:
+        # batch=1: hand the data axes to the sequence dimension instead
+        rules["batch"] = None
+        rules["seq"] = ("pod", "data")
+    elif seq_shard:
+        rules["seq"] = "data" if seq_shard is True else seq_shard
+    else:
+        rules["seq"] = None
+    return rules
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """Axis name -> size, of a ``DeviceMesh`` or a mesh description."""
+    names = mesh_axis_names(mesh)
+    if getattr(mesh, "mesh_dim_names", None) is not None:   # a DeviceMesh
+        return dict(zip(names, mesh.shape))
+    return {a: mesh.shape[a] for a in names}
+
+
+def axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, (tuple, list)) else (entry,)
+    sizes = mesh_sizes(mesh)
+    size = 1
+    for a in axes:
+        if a in sizes:
+            size *= sizes[a]
+    return size
+
+
+def fit_spec(shape: Tuple[int, ...], spec, mesh) -> Tuple[Any, ...]:
+    """Drop mesh axes from dims they don't divide (the GSPMD-safe fallback)."""
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if entry is None:
+            out.append(None)
+            continue
+        size = axis_size(mesh, entry)
+        out.append(entry if size and dim % size == 0 else None)
+    return tuple(out)
+
+
+def spec_for(shape: Tuple[int, ...], axes: Tuple[Optional[str], ...],
+             mesh, rules: Dict[str, Any]) -> Tuple[Any, ...]:
+    from repro_torch.models.param import logical_to_spec
+    return fit_spec(shape, logical_to_spec(axes, rules, mesh), mesh)
+
+
+def placements_for(spec, mesh) -> Tuple[Any, ...]:
+    """A partition spec as DTensor placements, one per mesh dim.  A mesh dim
+    of size 1 is ``Replicate()`` whatever the spec names there: the same
+    layout, and DTensor's view rules refuse a split of one piece."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh_axis_names(mesh)
+    sizes = mesh_sizes(mesh)
+    out: List[Any] = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        dims = [names.index(a) for a in
+                (entry if isinstance(entry, (tuple, list)) else (entry,))]
+        if dims != sorted(dims):
+            # DTensor splits a dimension over its mesh dims in mesh order
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                             f"axis order {names}")
+        for i in dims:
+            if sizes[names[i]] > 1:
+                out[i] = Shard(d)
+    return tuple(out)
+
+
+def sharding_for_specs(specs, mesh, rules: Dict[str, Any]):
+    """ParamSpec tree -> tree of DTensor placements (divisibility-safe)."""
+    from repro_torch.models.param import tree_map_specs
+    return tree_map_specs(
+        lambda s: placements_for(spec_for(s.shape, s.axes, mesh, rules), mesh),
+        specs)
+
+
+def pspec_for_specs(specs, mesh, rules: Dict[str, Any]):
+    from repro_torch.models.param import tree_map_specs
+    return tree_map_specs(
+        lambda s: spec_for(s.shape, s.axes, mesh, rules), specs)
+
+
+def distribute(x: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """A tensor that every rank holds whole -> a DTensor of ``placements``;
+    each rank keeps its own slice, and nothing is sent."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(x, DTensor):
+        return x if tuple(x.placements) == tuple(placements) else \
+            x.redistribute(mesh, placements)
+    return distribute_tensor(x, mesh, placements, src_data_rank=None)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def unshard(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """``x`` with dimensions ``dims`` whole on every rank (an all-gather over
+    the mesh dims that split them); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {d % x.ndim for d in dims}
+    placements = [Replicate() if isinstance(p, Shard) and p.dim in dims else p
+                  for p in x.placements]
+    return distribute(x, x.device_mesh, placements)
+
+
+def gather_axes(x: torch.Tensor, axes) -> torch.Tensor:
+    """``x`` whole over the mesh axes named in ``axes`` (one name, a tuple
+    of names, or None), split as before over the others; a plain tensor as
+    it is."""
+    if not is_dtensor(x) or not axes:
+        return x
+    from torch.distributed.tensor import Replicate
+    axes = axes if isinstance(axes, (tuple, list)) else (axes,)
+    names = mesh_axis_names(x.device_mesh)
+    placements = [Replicate() if names[i] in axes else p
+                  for i, p in enumerate(x.placements)]
+    return distribute(x, x.device_mesh, placements)
+
+
+def replicate(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whole on every rank: a pending sum is reduced; a plain tensor as
+    it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return distribute(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a kernel's backward
+    may hand back a strided gradient, and DTensor's dispatch of the
+    ``view`` in an ``einsum`` backward would refuse it as a local shard."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
+               outs=((0, None),)):
+    """``fn`` on each rank's shards, for a function whose work splits over
+    the batch (dim 0) and over heads, with no exchange between the pieces:
+    the kernels' wrappers, which launch on ``data_ptr()`` and so must never
+    be handed a DTensor.
+
+    ``q`` splits its heads on ``q_dim``; each of ``groups`` is grouped-query
+    shaped (batch dim 0, ``H // Hk`` of ``q``'s heads share one of its heads
+    on ``group_dim``); each of ``per_head`` is a pair (tensor, its heads
+    dim), split over heads as ``q`` is, and over the batch only when its
+    heads dim is not 0.  ``fn(q, *groups, *per_head)`` returns one tensor or
+    a tuple, described by ``outs``: per output, (its batch dim, its heads dim
+    or None for ``q_dim``).  With no DTensor among the inputs, ``fn`` runs on
+    them as they are.
+
+    ``q`` keeps its batch and heads split and is made whole along every
+    other dim.  A group operand is split as ``q`` when its heads divide the
+    mesh dims that split ``q``'s heads; otherwise it stays whole there, as
+    ``fit_spec`` leaves it, and each rank hands ``fn``, for each of its
+    query heads ``h``, the group head it uses (``h // (H / Hk)``), so that
+    the local grouping is one to one; the gradients of the copies sum back
+    into their head, and over the ranks.
+    """
+    tensors = (q,) + tuple(groups) + tuple(t for t, _ in per_head)
+    if not any(is_dtensor(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = next(t for t in tensors if is_dtensor(t)).device_mesh
+    role = []                           # per mesh dim: batch | heads | rep
+    for p in (q.placements if is_dtensor(q) else [Replicate()] * mesh.ndim):
+        role.append("batch" if p == Shard(0) else
+                    "heads" if p == Shard(q_dim) else "rep")
+    H = q.shape[q_dim]
+    coord = mesh.get_coordinate()
+    sizes = mesh.shape
+    split = 1
+    index = 0                           # this rank's block of q's heads
+    for i, r in enumerate(role):
+        if r == "heads":
+            split *= sizes[i]
+            index = index * sizes[i] + coord[i]
+
+    def target(batch_dim, heads_dim, heads_split=True):
+        pl, grad = [], []
+        for r in role:
+            if r == "batch" and batch_dim is not None:
+                pl.append(Shard(batch_dim))
+                grad.append(Shard(batch_dim))
+            elif r == "heads" and heads_split:
+                pl.append(Shard(heads_dim))
+                grad.append(Shard(heads_dim))
+            else:
+                pl.append(Replicate())
+                # a whole operand some of whose work another rank did
+                grad.append(Partial() if r != "rep" else Replicate())
+        return pl, grad
+
+    def local(t, pl, grad):
+        return _ContiguousGrad.apply(
+            distribute(t, mesh, pl).to_local(grad_placements=grad))
+
+    pl, grad = target(0, q_dim)
+    local_q = local(q, pl, grad)
+    H_loc = local_q.shape[q_dim]
+    h0 = index * H_loc
+    local_groups = []
+    for t in groups:
+        Hk = t.shape[group_dim]
+        G = H // Hk
+        aligned = Hk % split == 0
+        pl, grad = target(0, group_dim, heads_split=aligned)
+        lt = local(t, pl, grad)
+        if not aligned:
+            idx = torch.arange(h0, h0 + H_loc, device=lt.device) // G
+            lt = lt.index_select(group_dim, idx)
+        local_groups.append(lt)
+    local_rest = []
+    for t, d in per_head:
+        pl, grad = target(0 if d != 0 else None, d)
+        local_rest.append(local(t, pl, grad))
+    out = fn(local_q, *local_groups, *local_rest)
+    single = not isinstance(out, tuple)
+    wrapped = []
+    for o, (bd, hd) in zip((out,) if single else out, outs):
+        pl, _ = target(bd, q_dim if hd is None else hd)
+        wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
+    return wrapped[0] if single else tuple(wrapped)
+
+
+def whole_call(fn, *args):
+    """``fn`` on operands made whole on every rank, its outputs (a tensor or
+    a tuple) wrapped as replicated DTensors: for the ops DTensor has no rule
+    for (``searchsorted``, ``index_copy``, an ``index_select`` along a split
+    dim).  Every rank then does the same work, so the gradients of the whole
+    operands are whole too.  With no DTensor among ``args``, ``fn`` runs on
+    them as they are."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next(a for a in args if is_dtensor(a)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*(distribute(a, mesh, rep).to_local(grad_placements=rep)
+               if is_dtensor(a) else a for a in args))
+    wrap = lambda o: DTensor.from_local(o, mesh, rep, run_check=False)
+    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
+
+
+def place_tree(tree, placements, mesh):
+    """:func:`distribute` over matching leaves of two nested dicts."""
+    if isinstance(tree, dict):
+        return {k: place_tree(tree[k], placements[k], mesh) for k in tree}
+    return distribute(tree, mesh, placements)
+
+
+def make_shard_fn(mesh, rules: Dict[str, Any]) -> Callable:
+    """Activation-sharding callback threaded through the models: the
+    ``with_sharding_constraint`` of JAX as a DTensor redistribution (a plain
+    tensor, which every rank holds whole, is split without sending)."""
+    if mesh is None:
+        return lambda x, axes=None: x
+
+    def shard(x, axes=None):
+        if axes is None:
+            return x
+        spec = spec_for(tuple(x.shape), tuple(axes), mesh, rules)
+        return distribute(x, mesh, placements_for(spec, mesh))
+
+    shard.mesh = mesh
+    shard.rules = rules
+    return shard
+
+
+def batch_specs(cfg, shape_cfg, mesh, rules: Dict[str, Any]):
+    """(meta-tensor dict, placements dict) for a train/prefill batch of the
+    given architecture and shape point."""
+    B, S = shape_cfg.global_batch, shape_cfg.seq_len
+    specs: Dict[str, torch.Tensor] = {}
+    ax: Dict[str, Tuple[Optional[str], ...]] = {}
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    if cfg.num_codebooks:
+        specs["tokens"] = meta((B, cfg.num_codebooks, S), torch.int32)
+        ax["tokens"] = ("batch", None, None)
+    else:
+        specs["tokens"] = meta((B, S), torch.int32)
+        ax["tokens"] = ("batch", None)
+    if shape_cfg.kind == "train":
+        specs["targets"] = specs["tokens"]
+        ax["targets"] = ax["tokens"]
+        specs["loss_mask"] = meta((B, S), torch.float32)
+        ax["loss_mask"] = ("batch", None)
+    if cfg.num_image_tokens:
+        specs["image_embeds"] = meta((B, cfg.num_image_tokens, 1024),
+                                     torch.float32)
+        ax["image_embeds"] = ("batch", None, None)
+    placements = {k: placements_for(spec_for(tuple(v.shape), ax[k], mesh,
+                                             rules), mesh)
+                  for k, v in specs.items()}
+    return specs, placements

@@ -17,6 +17,12 @@ from ``jax.random.categorical``'s: that is the one intended difference.
 The server runs on the card unless the caller names another device; with no
 CUDA device present and none named, it raises.
 
+With a process group it serves on a ``DeviceMesh`` of (world // model_axis,
+model_axis) as (data, model), by the decode rules: the parameters and the
+cache are DTensors placed by their specs, the kernels run on each rank's
+shards, and the logits are gathered whole before sampling, so every rank
+generates the same tokens.
+
 CLI:  python -m repro_torch.launch.serve --arch gemma-2b --smoke --tokens 16
 """
 
@@ -31,6 +37,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
+from repro_torch.distributed.sharding import (make_rules, make_shard_fn,
+                                              place_tree, replicate,
+                                              sharding_for_specs)
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import build_model
 
 
@@ -49,10 +59,6 @@ class ServeJob:
 
 class Server:
     def __init__(self, job: ServeJob, params=None, device=None) -> None:
-        if job.model_axis > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet; see ROADMAP "
-                "Queue 1 item 16 (distribution)")
         device = device or job.device
         if device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on "
@@ -63,32 +69,59 @@ class Server:
         if job.smoke:
             cfg = reduce_for_smoke(cfg)
         self.cfg = cfg
-        self.model = build_model(cfg)
+        self.mesh = make_local_mesh(job.model_axis, self.device.type)
+        self.rules = make_rules("decode")
+        self.model = build_model(cfg, shard_fn=make_shard_fn(self.mesh,
+                                                             self.rules))
         if params is None:
             gen = torch.Generator(self.device).manual_seed(job.seed)
             params = self.model.init(gen, self.device)
+        if self.mesh is not None:
+            params = self._place(self.model.param_specs(), params)
         self.params = params
-        self.head = self.model.logits_weight(params)   # fp32, made once
+        with self.model.spmd():    # fp32, made once
+            self.head = self.model.logits_weight(
+                self.model.compute_params(params))
         self.stats = {"prefill_s": 0.0, "decode_s": 0.0, "tokens": 0}
+
+    def _place(self, specs, tree):
+        """A tree every rank holds whole, as DTensors placed by ``specs``."""
+        return place_tree(tree, sharding_for_specs(specs, self.mesh,
+                                                   self.rules), self.mesh)
 
     def _step(self, cache, tokens: np.ndarray, pos: int):
         tok = torch.from_numpy(tokens).to(self.device, torch.int64)
-        return self.model.decode_step(self.params, cache, tok, pos,
-                                      head=self.head)
+        tok = self.model.shard(tok, ("batch",) + (None,) * (tok.ndim - 1))
+        with self.model.spmd():
+            logits, cache = self.model.decode_step(self.params, cache, tok,
+                                                   pos, head=self.head)
+            if self.mesh is not None:
+                logits = replicate(logits).to_local()
+        return logits, cache
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: Optional[int] = None
                  ) -> np.ndarray:
-        """prompts (B, P) int32 -> (B, P + new) generated ids (greedy/sampled)."""
+        """prompts (B, P) int32 -> (B, P + new) generated ids (greedy/sampled).
+
+        In ``torch.inference_mode()``, or under a mesh in ``no_grad``: a
+        DTensor's views cannot be made of inference tensors."""
+        with (torch.no_grad() if self.mesh is not None
+              else torch.inference_mode()):
+            return self._generate(prompts, max_new_tokens)
+
+    def _generate(self, prompts: np.ndarray, max_new_tokens: Optional[int]
+                  ) -> np.ndarray:
         job = self.job
         new = max_new_tokens or job.max_new_tokens
         B, P = prompts.shape
         total = P + new
         cache = self.model.init_cache(B, total, self.device)
+        if self.mesh is not None:
+            cache = self._place(self.model.cache_specs(B, total), cache)
         gen = torch.Generator(self.device).manual_seed(job.seed)
         out = np.zeros((B, total), np.int32)
         out[:, :P] = prompts

@@ -4,8 +4,17 @@
 
 The train step updates its state IN PLACE and returns it, as the JAX trainer
 donates the state to its jitted step; the decode step so updates its cache.
-Lowering a cell for the dry run (``build_cell``, ``lower_cell``) waits for
-ROADMAP Queue 1 item 17.
+
+Under a mesh (a model built with ``make_shard_fn(mesh, rules)``) the state is
+a tree of DTensors placed by ``sharding_for_specs`` (``state_placements``),
+the step runs in the model's ``spmd()`` context, and each gradient is
+redistributed to its parameter's placements (a pending sum over the batch
+ranks reduce-scattered) before the optimizer, which then works on every
+rank's shards alone; its metrics come back whole, as plain tensors.
+``grad_compress`` stays the numerics-only ``compress_grads``, as in JAX's
+step; the int8 collective is ``distributed.collectives``.  Lowering a cell
+for the dry run (``build_cell``, ``lower_cell``) waits for ROADMAP Queue 1
+item 17.
 """
 
 from __future__ import annotations
@@ -14,6 +23,9 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed.sharding import (distribute, is_dtensor,
+                                              place_tree, replicate,
+                                              sharding_for_specs)
 from repro_torch.models.model import Model
 from repro_torch.models.param import (ParamSpec, named_leaves, tree_map,
                                       unflatten)
@@ -33,6 +45,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         # cut to its dense layers has) gets zeros, as jax.grad gives it
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
+        grads = [distribute(g, p.device_mesh, p.placements)
+                 if is_dtensor(p) else g for g, p in zip(grads, leaves)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return unflatten(zip(paths, grads)), metrics
 
@@ -44,8 +58,8 @@ def make_train_step(model: Model, optimizer: AdamW, *,
             return x.reshape((microbatches, x.shape[0] // microbatches)
                              + tuple(x.shape[1:]))
         mb = {k: split(v) for k, v in batch.items()}
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        grads = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                         params)
         per_mb = []
         for i in range(microbatches):
             g, metrics = value_and_grad(params, {k: v[i] for k, v in mb.items()})
@@ -56,21 +70,28 @@ def make_train_step(model: Model, optimizer: AdamW, *,
         return grads, metrics
 
     def train_step(state, batch):
-        params = state["params"]
-        grads, metrics = compute_grads(params, batch)
-        if grad_compress:
-            grads, new_fb = compress_grads(grads, state["error_fb"])
-        updates, opt_state, opt_metrics = optimizer.update(
-            grads, state["opt"], params)
-        new_state = {"params": apply_updates(params, updates),
-                     "opt": opt_state}
-        if grad_compress:
-            new_state["error_fb"] = new_fb
-        metrics = dict(metrics)
-        metrics.update(opt_metrics)
+        with model.spmd():
+            params = state["params"]
+            grads, metrics = compute_grads(params, batch)
+            if grad_compress:
+                grads, new_fb = compress_grads(grads, state["error_fb"])
+            updates, opt_state, opt_metrics = optimizer.update(
+                grads, state["opt"], params)
+            new_state = {"params": apply_updates(params, updates),
+                         "opt": opt_state}
+            if grad_compress:
+                new_state["error_fb"] = new_fb
+            metrics = dict(metrics)
+            metrics.update(opt_metrics)
+            metrics = {k: _whole(v) for k, v in metrics.items()}
         return new_state, metrics
 
     return train_step
+
+
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor, the same on every rank."""
+    return replicate(x).to_local() if is_dtensor(x) else x
 
 
 def make_prefill_step(model: Model):
@@ -107,10 +128,24 @@ def train_state_specs(model: Model, optimizer: AdamW, *,
     return out
 
 
+def state_placements(model: Model, optimizer: AdamW, mesh, rules, *,
+                     grad_compress: bool = False):
+    """The train state's DTensor placements on ``mesh`` by ``rules``."""
+    return sharding_for_specs(
+        train_state_specs(model, optimizer, grad_compress=grad_compress),
+        mesh, rules)
+
+
 def init_state(model: Model, optimizer: AdamW, generator: torch.Generator,
-               device, *, grad_compress: bool = False) -> Dict[str, Any]:
+               device, *, grad_compress: bool = False, mesh=None,
+               rules=None) -> Dict[str, Any]:
+    """The initial state; with ``mesh``, placed by ``rules``: every rank
+    draws the whole state from the same seed and keeps its own shards."""
     params = model.init(generator, device)
     out = {"params": params, "opt": optimizer.init(params)}
     if grad_compress:
         out["error_fb"] = init_error_feedback(params)
+    if mesh is not None:
+        out = place_tree(out, state_placements(
+            model, optimizer, mesh, rules, grad_compress=grad_compress), mesh)
     return out

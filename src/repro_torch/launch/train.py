@@ -2,6 +2,14 @@
 checkpoint/restart into the lake, straggler detection and failure injection
 (port of ``repro.launch.train``).
 
+With a process group (``torch.distributed``, one rank a device), the trainer
+runs on a ``DeviceMesh`` of (world // model_axis, model_axis) as (data,
+model): the state is placed by the train rules, each rank builds the same
+global batch from the lake and keeps its slice, and the step runs on
+DTensors (``launch.steps``).  Only rank 0 logs and writes checkpoints; every
+rank returns the same losses.  Without one, it runs in one process on plain
+tensors, as before; ``model_axis`` must then be 1.
+
 It trains the dense, audio, vlm and moe families (deepseek-v3 with its
 multi-token prediction loss), mamba2 (ssm) and zamba2 (hybrid).  The trainer
 runs on the card unless the caller names another device; with no CUDA
@@ -25,17 +33,21 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
+from repro_torch.configs import ARCHS, ShapeConfig, get_arch, reduce_for_smoke
 from repro_torch.core.dataset import Dataset
 from repro_torch.core.storage import MemoryProvider, SimulatedS3Provider, chain
 from repro_torch.core.views import DatasetView
 from repro_torch.data import DeviceFeeder, TokenBatcher, build_token_dataset
 from repro_torch.distributed import (FailureInjector, StragglerDetector,
                                      run_resilient)
+from repro_torch.distributed.sharding import (batch_specs, make_rules,
+                                              make_shard_fn)
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.steps import (init_state, make_train_step,
-                                      train_state_specs)
+                                      state_placements, train_state_specs)
 from repro_torch.models.model import build_model
 from repro_torch.models.param import abstract
 from repro_torch.optim import AdamW, cosine_schedule
@@ -68,10 +80,6 @@ class TrainJob:
 class Trainer:
     def __init__(self, job: TrainJob, *, data_ds: Optional[Dataset] = None,
                  ckpt: Optional[CheckpointManager] = None) -> None:
-        if job.model_axis > 1:
-            raise NotImplementedError(
-                "tensor-parallel training is not ported yet; see ROADMAP "
-                "Queue 1 item 16 (distribution)")
         if job.device is None and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                                "the CPU")
@@ -81,7 +89,11 @@ class Trainer:
         if job.smoke:
             cfg = reduce_for_smoke(cfg)
         self.cfg = cfg
-        self.model = build_model(cfg)
+        self.mesh = make_local_mesh(job.model_axis, self.device.type)
+        self.rules = make_rules("train")
+        self.rank = dist.get_rank() if self.mesh is not None else 0
+        self.model = build_model(cfg, shard_fn=make_shard_fn(self.mesh,
+                                                             self.rules))
         self.opt = AdamW(cosine_schedule(job.lr, job.warmup, max(job.steps, 2)),
                          moment_dtype=cfg.adam_moment_dtype)
         self.step_fn = make_train_step(self.model, self.opt,
@@ -91,7 +103,7 @@ class Trainer:
                                               keep=job.keep_checkpoints)
         self.data_ds = data_ds or self._make_data()
         self.straggler = StragglerDetector(
-            on_straggler=lambda s, t, base: print(
+            on_straggler=lambda s, t, base: self._log(
                 f"[straggler] step {s}: {t*1e3:.0f}ms vs baseline "
                 f"{base*1e3:.0f}ms -> rebuilding input pipeline"))
         self.injector = FailureInjector(fail_at_steps=tuple(job.fail_at))
@@ -128,22 +140,48 @@ class Trainer:
                          1024)).astype(np.float32)
                 yield b
 
-        return iter(DeviceFeeder(with_extras(), self.device))
+        placements = None
+        if self.mesh is not None:
+            sc = ShapeConfig("job", self.job.seq_len, self.job.global_batch,
+                             "train")
+            placements = batch_specs(self.cfg, sc, self.mesh, self.rules)[1]
+        return iter(DeviceFeeder(with_extras(), self.device,
+                                 placements=placements, mesh=self.mesh))
+
+    def _log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg)
+
+    def _agreed(self, flag: bool) -> bool:
+        """Rank 0's answer on every rank: a pipeline rebuilt on one rank
+        alone would feed it other batches than the rest."""
+        if self.mesh is None:
+            return flag
+        box = [flag]
+        dist.broadcast_object_list(box, src=0)
+        return bool(box[0])
 
     # ------------------------------------------------------------------ run
     def run(self, *, restore: bool = True) -> Dict[str, Any]:
         job = self.job
         start_step = 0
-        if restore and self.ckpt.latest_step() is not None:
+        latest = self.ckpt.latest_step(mesh=self.mesh) if restore else None
+        if latest is not None:
             specs = train_state_specs(self.model, self.opt,
                                       grad_compress=job.grad_compress)
-            state = self.ckpt.restore(abstract(specs), device=self.device)
-            start_step = self.ckpt.latest_step()
-            print(f"[restore] resumed from step {start_step}")
+            placements = None if self.mesh is None else state_placements(
+                self.model, self.opt, self.mesh, self.rules,
+                grad_compress=job.grad_compress)
+            state = self.ckpt.restore(abstract(specs), latest,
+                                      device=self.device,
+                                      shardings=placements, mesh=self.mesh)
+            start_step = latest
+            self._log(f"[restore] resumed from step {start_step}")
         else:
             gen = torch.Generator(self.device).manual_seed(job.seed)
             state = init_state(self.model, self.opt, gen, self.device,
-                               grad_compress=job.grad_compress)
+                               grad_compress=job.grad_compress,
+                               mesh=self.mesh, rules=self.rules)
         batches = self._batches()
         step = start_step
         while step < job.steps:
@@ -157,14 +195,15 @@ class Trainer:
             state, metrics = self.step_fn(state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
-            if self.straggler.observe(step, dt):
+            if self._agreed(self.straggler.observe(step, dt)):
                 batches = self._batches()  # mitigation: rebuild pipeline
             self.history.append({"step": step, "loss": loss, "sec": dt})
             if step % job.log_every == 0:
-                print(f"step {step:5d} loss {loss:8.4f} "
-                      f"({dt*1e3:6.0f} ms)")
+                self._log(f"step {step:5d} loss {loss:8.4f} "
+                          f"({dt*1e3:6.0f} ms)")
             step += 1
             if step % job.checkpoint_every == 0 or step == job.steps:
+                # every rank joins the gather of a DTensor state; rank 0 writes
                 self.ckpt.save(state, step)
         self.ckpt.wait()
         return {"state": state, "final_step": step,

@@ -21,6 +21,14 @@ Local (sliding-window) layers keep a ring-buffer cache of size ``window``
 keys in order, as JAX keeps it, so decode continues from it at the right
 slots only when the prompt is at most ``window`` long or a multiple of it.
 
+Under a mesh the operands are DTensors.  JAX leaves the partitioning of its
+Pallas calls to GSPMD; the port runs each kernel on every rank's shards
+(``distributed.sharding.local_call``: the batch and the query heads split,
+the rest whole), with the same result, because no (batch, head) row of
+attention needs another's.  Where the KV heads do not divide the model axis
+they stay whole, and each rank gives the kernel only the KV heads its query
+heads use.
+
 MLA runs no kernel, as in JAX: training and prefill expand K/V from the
 latents and run the plain ``blockwise_attention`` under every impl; decode
 is the absorbed form in plain ops over a cache of the latents only.
@@ -34,6 +42,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_call
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -231,8 +240,10 @@ def gqa_attend(q, k, v, cfg, *, window: int = 0, impl: str = "kernel",
     JAX's pallas branch does."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     if impl == "kernel":
-        return flash_attention(q, k, v, causal=True, window=window,
-                               scale=scale)
+        return local_call(
+            lambda q, k, v: flash_attention(q, k, v, causal=True,
+                                            window=window, scale=scale),
+            q, (k, v), q_dim=2, group_dim=2)
     if impl in ("torch", "torch_pairs"):
         return blockwise_attention(q, k, v, scale=scale, causal=True,
                                    window=window,
@@ -296,8 +307,10 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg, *, window: int = 0,
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     if impl == "kernel":
-        out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v, pos=pos,
-                               window=window)[:, None]
+        out = local_call(
+            lambda q, k, v: decode_attention(q.contiguous(), k, v, pos=pos,
+                                             window=window),
+            q[:, 0], (cache_k, cache_v), q_dim=1, group_dim=2)[:, None]
     elif impl in ("torch", "torch_pairs"):
         out = _attend_torch(q, cache_k, cache_v, pos, slot, window)
     else:

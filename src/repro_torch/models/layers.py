@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import replicate, unshard
+
 from .param import ParamSpec
 
 
@@ -84,15 +86,22 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------- loss
 def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token-mean CE in fp32: logsumexp minus the gold logit, masked."""
-    logits = logits.float()
+    """Token-mean CE in fp32: logsumexp minus the gold logit, masked.
+
+    Vocab-sharded DTensor logits are gathered over the vocab first: DTensor
+    has no rule for a gather along a sharded dim (GSPMD inserts the
+    cross-shard max/sum reductions instead).  The batch sums are reduced
+    before the division, so the loss is whole on every rank.
+    """
+    logits = unshard(logits.float(), -1)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         m = mask.float()
-        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
-    return torch.mean(nll)
+        return replicate(torch.sum(nll * m)) / torch.clamp(
+            replicate(torch.sum(m)), min=1.0)
+    return replicate(torch.mean(nll))
 
 
 # ---------------------------------------------------------------- remat

@@ -46,25 +46,34 @@ API:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_axes
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embed, maybe_remat, mlp, mlp_specs, rmsnorm,
                      softmax_cross_entropy)
-from .param import ParamSpec, materialize
+from .param import ParamSpec, materialize, tree_map
+
+
+Identity = lambda x, axes=None: x
 
 
 def _ln(d: int, stack: Tuple[int, ...] = ()) -> ParamSpec:
     return ParamSpec(stack + (d,), (None,) * len(stack) + (None,), init="ones",
                      dtype="float32")
+
+
+# the parameter trees stacked with a leading layer (or period) axis
+STACKED = ("blocks", "dense_blocks", "moe_blocks", "mamba", "periods", "tail")
 
 
 def _index(tree, i: int):
@@ -87,7 +96,8 @@ def _unbind(tree):
 
 
 class Model:
-    def __init__(self, cfg: ModelConfig, attn_impl: str = "kernel") -> None:
+    def __init__(self, cfg: ModelConfig, shard_fn: Callable = Identity,
+                 attn_impl: str = "kernel") -> None:
         if cfg.family not in ("dense", "audio", "vlm", "moe", "ssm", "hybrid"):
             raise ValueError(cfg.family)
         if cfg.family != "ssm" and cfg.attention not in ("gqa", "mla"):
@@ -96,6 +106,7 @@ class Model:
         if attn_impl not in attn.IMPLS:
             raise ValueError(f"unknown attention impl {attn_impl!r}")
         self.cfg = cfg
+        self.shard = shard_fn
         self.attn_impl = attn_impl
         if cfg.family == "hybrid":      # zamba2's shared attention block
             hb = cfg.hybrid
@@ -198,11 +209,44 @@ class Model:
         return materialize(self.param_specs(), generator, device,
                            dtype_override)
 
+    def compute_params(self, params):
+        """The parameters as the model computes with them: under a mesh,
+        every tree but the stacked layers (``STACKED``) made whole by
+        :meth:`_whole`; the layers stay split until each layer's own
+        :meth:`_whole` call, inside its ``maybe_remat``, so that one layer
+        at a time is whole, as GSPMD gathers a ZeRO-3 weight per use.
+        Without a mesh, ``params`` as they are."""
+        return {k: v if k in STACKED else self._whole(v)
+                for k, v in params.items()}
+
+    def _whole(self, p):
+        """A parameter tree as its layers compute with it: each DTensor whole
+        over the mesh axes of the "fsdp" rule (the all-gather of a ZeRO-3
+        weight, whose backward reduce-scatters its gradient) and still split
+        over the model axis; plain tensors as they are.  DTensor's rules
+        cannot contract a batch-split activation with a weight split over
+        the same mesh axis on another dim (an ``einsum`` that views across
+        the split), where GSPMD gathers the weight."""
+        axes = getattr(self.shard, "rules", {}).get("fsdp")
+        if not axes:
+            return p
+        return tree_map(lambda t: gather_axes(t, axes), p)
+
+    def spmd(self):
+        """The context the model runs in under a mesh: plain tensors made
+        inside (positions, masks, rope tables) count as whole on every
+        rank."""
+        if getattr(self.shard, "mesh", None) is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+
     # ------------------------------------------------------------- block fwd
     def _dense_block(self, p, h, positions, kind: str, aux=None):
         """-> (h, aux): a layer with ``"moe"`` adds its load-balance loss to
         ``aux``; any other passes ``aux`` through."""
         cfg = self.cfg
+        p = self._whole(p)
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         if cfg.attention == "mla":
@@ -211,22 +255,24 @@ class Model:
         else:
             a = attn.gqa_train(p["attn"], hn, positions, cfg, window=window,
                                impl=self.attn_impl)
-        h = h + a
+        h = self.shard(h + a, ("batch", None, None))
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if "moe" in p:
-            out, aux_i = moe_lib.moe_apply(p["moe"], hn, cfg)
+            out, aux_i = moe_lib.moe_apply(p["moe"], hn, cfg, shard=self.shard)
             aux = aux + aux_i
         else:
             out = mlp(p["mlp"], hn, cfg.mlp)
-        return h + out, aux
+        return self.shard(h + out, ("batch", None, None)), aux
 
     def _ssm_block(self, p, h):
         # both plain attention impls scan through ssd_chunked, as JAX maps
         # every impl but pallas to xla
+        p = self._whole(p)
         hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
-        return h + ssm_lib.mamba2_forward(
+        return self.shard(h + ssm_lib.mamba2_forward(
             p["ssm"], hn, self.cfg,
-            impl="kernel" if self.attn_impl == "kernel" else "torch")
+            impl="kernel" if self.attn_impl == "kernel" else "torch"),
+            ("batch", None, None))
 
     def _shared_attn_block(self, p, h, positions):
         cfg = self.cfg
@@ -236,7 +282,7 @@ class Model:
         if "mlp" in p:
             hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
             h = h + mlp(p["mlp"], hn, cfg.mlp)
-        return h
+        return self.shard(h, ("batch", None, None))
 
     # --------------------------------------------------------------- embed
     def _scale_embeddings(self, h):
@@ -258,7 +304,7 @@ class Model:
         if cfg.num_image_tokens and "image_embeds" in batch:
             img = batch["image_embeds"].to(h.dtype) @ params["img_proj"]
             h = torch.cat([img, h[:, cfg.num_image_tokens:]], dim=1)
-        return h
+        return self.shard(h, ("batch", None, None))
 
     # -------------------------------------------------------------- backbone
     def backbone(self, params, h, positions):
@@ -329,6 +375,7 @@ class Model:
         [, image_embeds] -> (loss, {"ce", "loss"}); the moe family adds
         "aux", and with multi-token prediction "mtp"."""
         cfg = self.cfg
+        params = self.compute_params(params)
         tokens = batch["tokens"]
         S = tokens.shape[-1]
         B = tokens.shape[0]
@@ -342,6 +389,8 @@ class Model:
         h = rmsnorm(params["final_ln"], h, cfg.norm_eps)
         head = self.logits_weight(params)   # one fp32 copy for both losses
         logits = self._logits(params, h, head)
+        logits = self.shard(logits, ("batch", None, "vocab") if logits.ndim == 3
+                            else ("batch", None, None, "vocab"))
         targets = batch["targets"]
         mask = batch.get("loss_mask")
         if cfg.num_codebooks:       # (B,S,K,V) vs targets (B,K,S)
@@ -391,6 +440,7 @@ class Model:
         codebooks; ``head`` is ``logits_weight(params)``, if the caller has
         it.  The norm and logits are taken of the last position only."""
         cfg = self.cfg
+        params = self.compute_params(params)
         tokens = batch["tokens"]
         B, S = tokens.shape[0], tokens.shape[-1]
         positions = torch.arange(S, dtype=torch.int32,
@@ -405,6 +455,7 @@ class Model:
         """One layer's forward -> (h, its cache: (k, v), or the MLA
         latents (ckv, kr))."""
         cfg = self.cfg
+        p = self._whole(p)
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         if cfg.attention == "mla":
@@ -430,6 +481,7 @@ class Model:
 
         if cfg.family == "ssm":
             for i, p in enumerate(_unbind(params["blocks"])):
+                p = self._whole(p)
                 hn = rmsnorm(p["ln"], h, cfg.norm_eps)
                 out, state, conv = ssm_lib_prefill(p["ssm"], hn, cfg,
                                                    self.attn_impl)
@@ -448,6 +500,7 @@ class Model:
                     hn = rmsnorm(shared["ln2"], h, cfg.norm_eps)
                     h = h + mlp(shared["mlp"], hn, cfg.mlp)
                 for i, layer in enumerate(_unbind(p)):
+                    layer = self._whole(layer)
                     hn = rmsnorm(layer["ln"], h, cfg.norm_eps)
                     out, state, conv = ssm_lib_prefill(layer["ssm"], hn, cfg,
                                                        self.attn_impl)
@@ -609,6 +662,7 @@ class Model:
         """One layer's decode step; for MLA, ``ck`` and ``cv`` are the
         layer's ``ckv`` and ``kr`` caches."""
         cfg = self.cfg
+        p = self._whole(p)
         window = cfg.sliding_window if kind == "L" else 0
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
         if cfg.attention == "mla":
@@ -631,6 +685,7 @@ class Model:
         decodes many steps.
         """
         cfg = self.cfg
+        params = self.compute_params(params)
         if cfg.num_codebooks:
             h = None
             for k in range(cfg.num_codebooks):
@@ -671,6 +726,7 @@ class Model:
     def _ssm_step(self, p, h, state, conv):
         """One mamba layer's decode step; ``state`` and ``conv`` are updated
         in place."""
+        p = self._whole(p)
         hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
         out, new_state, new_conv = ssm_lib.mamba2_decode_step(
             p["ssm"], hn, state, conv, self.cfg)
@@ -745,5 +801,6 @@ def ssm_lib_prefill(p, hn, cfg, attn_impl):
     return y @ p["out_proj"], h_final, conv_tail
 
 
-def build_model(cfg: ModelConfig, attn_impl: str = "kernel") -> Model:
-    return Model(cfg, attn_impl=attn_impl)
+def build_model(cfg: ModelConfig, shard_fn: Callable = Identity,
+                attn_impl: str = "kernel") -> Model:
+    return Model(cfg, shard_fn=shard_fn, attn_impl=attn_impl)

@@ -36,6 +36,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import whole_call
+
 from .param import ParamSpec
 
 
@@ -110,46 +112,65 @@ def dispatch(idx: torch.Tensor, cap: int, num_experts: int):
     return order, se, pos, pos < cap
 
 
-def moe_apply(params, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (out (B, S, d), aux loss scalar)."""
+def moe_apply(params, x: torch.Tensor, cfg,
+              shard=lambda x, axes=None: x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out (B, S, d), aux loss scalar).
+
+    ``shard`` pins the intermediates at the JAX function's sites: the tokens
+    on the batch axis, the (E, C, d) buffers and the expert FFN on the
+    expert axis.  Under a mesh the dispatch plan and the row gathers around
+    the buffer (``searchsorted``, ``index_copy``, ``index_select``, which
+    DTensor has no rules for) run on the whole token table on every rank
+    (``whole_call``), where JAX shards the expert-sorted table (``se``,
+    ``st``, ``sw``, ``pos``, the gathered rows and ``y``) on the expert
+    axis: the same values, and each rank then keeps its experts' rows.
+    """
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     k, E = m.top_k, m.num_experts
-    x2d = x.reshape(T, d)
+    x2d = shard(x.reshape(T, d), ("batch", None))
     idx, w, aux = _route(params, x2d, cfg)
     cap = capacity(T, cfg)
 
-    order, se, pos, keep = dispatch(idx, cap, E)
-    st = order // k                                # token of each assignment
-    sw = w.reshape(T * k).index_select(0, order)
-    # kept assignments to their slot, dropped ones to the spare row E*cap
-    slot = torch.where(keep, se * cap + pos, E * cap)
-    buf = x2d.new_zeros((E * cap + 1, d)).index_copy(
-        0, slot, x2d.index_select(0, st))
-    buf = buf[:E * cap].view(E, cap, d)
+    def into_buffer(x2d, idx, w):
+        order, se, pos, keep = dispatch(idx, cap, E)
+        st = order // k                            # token of each assignment
+        sw = w.reshape(T * k).index_select(0, order)
+        # kept assignments to their slot, dropped ones to the spare row E*cap
+        slot = torch.where(keep, se * cap + pos, E * cap)
+        buf = x2d.new_zeros((E * cap + 1, d)).index_copy(
+            0, slot, x2d.index_select(0, st))
+        return buf[:E * cap].view(E, cap, d), order, se, pos, keep, sw
 
+    def combine(out_buf, idx, order, se, pos, keep, sw):
+        out_buf = out_buf.reshape(E * cap, d)
+        pos_c = torch.clamp(pos, max=cap - 1)
+        y = out_buf.index_select(0, se * cap + pos_c) * \
+            (keep.to(x.dtype) * sw.to(x.dtype))[:, None]
+        # each token's k rows in ascending expert id: the sorted position of
+        # assignment t*k + j is inv[t*k + j], and argsort(idx) orders j by id
+        inv = torch.empty_like(order).index_copy_(
+            0, order, torch.arange(T * k, device=order.device))
+        by_id = torch.argsort(idx, dim=-1) + \
+            torch.arange(0, T * k, k, device=order.device)[:, None]
+        y = y.index_select(0, inv.index_select(0, by_id.reshape(T * k)))
+        y = y.view(T, k, d)
+        out = y[:, 0]
+        for j in range(1, k):
+            out = out + y[:, j]
+        return out
+
+    buf, *plan = whole_call(into_buffer, x2d, idx, w)
+    buf = shard(buf, ("expert", None, None))
     h = torch.bmm(buf, params["wi"])
     g = torch.bmm(buf, params["wg"])
-    out_buf = torch.bmm(F.silu(g) * h, params["wo"]).view(E * cap, d)
-
-    pos_c = torch.clamp(pos, max=cap - 1)
-    y = out_buf.index_select(0, se * cap + pos_c) * \
-        (keep.to(x.dtype) * sw.to(x.dtype))[:, None]
-    # each token's k rows in ascending expert id: the sorted position of
-    # assignment t*k + j is inv[t*k + j], and argsort(idx) orders j by id
-    inv = torch.empty_like(order).index_copy_(
-        0, order, torch.arange(T * k, device=x.device))
-    by_id = torch.argsort(idx, dim=-1) + \
-        torch.arange(0, T * k, k, device=x.device)[:, None]
-    y = y.index_select(0, inv.index_select(0, by_id.reshape(T * k)))
-    y = y.view(T, k, d)
-    out = y[:, 0]
-    for j in range(1, k):
-        out = out + y[:, j]
+    h = shard(F.silu(g) * h, ("expert", None, None))
+    out_buf = shard(torch.bmm(h, params["wo"]), ("expert", None, None))
+    out = shard(whole_call(combine, out_buf, idx, *plan), ("batch", None))
 
     if m.num_shared:
         sh = x2d @ params["shared_wi"]
         sg = x2d @ params["shared_wg"]
         out = out + (F.silu(sg) * sh) @ params["shared_wo"]
-    return out.view(B, S, d), aux
+    return out.reshape(B, S, d), aux

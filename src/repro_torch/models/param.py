@@ -13,19 +13,33 @@ From one spec tree we derive:
 * ``count_params`` / ``param_bytes``,
 * ``from_numpy_tree(tree, device)``         — a JAX pytree (parameters or a
                                               train state), turned into numpy
-                                              arrays, as tensors.
+                                              arrays, as tensors,
+* ``shardings(specs, mesh)``                — DTensor placements over a
+                                              ``DeviceMesh`` via the logical ->
+                                              mesh axis rules,
+* ``pspecs(specs)``                         — the partition specs themselves.
 
-The logical axes are kept on each spec for the distribution slice; nothing in
-this module maps them to devices yet.
+Logical axes (MaxText-style), as in the JAX package:
+    "batch"   activations' batch            -> ("pod", "data")
+    "fsdp"    params' ZeRO-3 shard axis     -> ("pod", "data")
+    "model"   tensor-parallel axis          -> "model"  (heads / ff / experts / vocab)
+    "seq"     sequence-parallel axis        -> "data" (long-context decode caches)
+    None      replicated
+
+A partition spec is a tuple with one entry a dimension: ``None`` (not split),
+a mesh axis name, or a tuple of names (split over their product, the first
+name major), as ``jax.sharding.PartitionSpec`` holds them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import mesh_axis_names, placements_for
 
 
 @dataclass(frozen=True)
@@ -41,6 +55,65 @@ class ParamSpec:
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
                              "in rank")
+
+
+DEFAULT_RULES: Dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "fsdp": ("pod", "data"),
+    "model": "model",
+    "seq": "data",
+    "expert": "model",
+    "heads": "model",
+    "vocab": "model",
+    "ff": "model",
+}
+
+
+def logical_to_spec(axes: Sequence[Optional[str]],
+                    rules: Optional[Dict[str, Any]] = None,
+                    mesh=None) -> Tuple[Any, ...]:
+    """Logical axes -> partition spec.  A mesh axis is used once per spec
+    (the first dimension that asks for it takes it), and with ``mesh`` only
+    its axes are named."""
+    rules = rules or DEFAULT_RULES
+    names = mesh_axis_names(mesh) if mesh is not None else None
+    out = []
+    used: set = set()
+
+    def mesh_axes_of(entry) -> Tuple[str, ...]:
+        if entry is None:
+            return ()
+        return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+    for a in axes:
+        entry = rules.get(a) if a is not None else None
+        mesh_axes = tuple(m for m in mesh_axes_of(entry)
+                          if (names is None or m in names) and m not in used)
+        used.update(mesh_axes)
+        if not mesh_axes:
+            out.append(None)
+        elif len(mesh_axes) == 1:
+            out.append(mesh_axes[0])
+        else:
+            out.append(tuple(mesh_axes))
+    return tuple(out)
+
+
+def tree_map_specs(fn: Callable[[ParamSpec], Any], specs) -> Any:
+    """``fn`` over the :class:`ParamSpec` leaves of a nested dict."""
+    return tree_map(fn, specs)
+
+
+def shardings(specs, mesh, rules: Optional[Dict[str, Any]] = None):
+    """Each spec's DTensor placements over ``mesh`` (a ``DeviceMesh``), by
+    ``logical_to_spec`` without the divisibility fit, as the JAX function."""
+    return tree_map_specs(
+        lambda s: placements_for(logical_to_spec(s.axes, rules, mesh), mesh),
+        specs)
+
+
+def pspecs(specs, rules: Optional[Dict[str, Any]] = None, mesh=None):
+    return tree_map_specs(lambda s: logical_to_spec(s.axes, rules, mesh), specs)
 
 
 def torch_dtype(name: str) -> torch.dtype:

@@ -30,6 +30,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_call
+
 from .param import ParamSpec
 
 
@@ -215,7 +217,13 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *, impl: str = "kernel",
             raise ValueError("the ssd kernel takes no initial state; use "
                              "impl='torch'")
         from repro_torch.kernels.ssd_scan import ssd
-        y, h_final = ssd(x, dt, A, Bm, Cm, chunk=s.chunk_size)
+        # per shard under a mesh: the batch and the heads split, each rank's
+        # heads with the B/C groups they read (the scan needs no exchange)
+        y, h_final = local_call(
+            lambda x, Bm, Cm, dt, A: ssd(x, dt, A, Bm, Cm,
+                                         chunk=s.chunk_size),
+            x, (Bm, Cm), ((dt, 2), (A, 0)), q_dim=2, group_dim=2,
+            outs=((0, None), (0, 1)))
     elif impl == "torch":
         y, h_final = ssd_chunked(x, dt, A, Bm, Cm, chunk=s.chunk_size,
                                  init_state=init_state)

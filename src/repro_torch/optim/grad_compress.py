@@ -4,7 +4,7 @@
 Per-leaf symmetric quantization with an error-feedback residual keeps the
 optimizer trajectory unbiased; ``compress_grads`` models the numerics of a
 quantized all-reduce around the optimizer.  The quantized collective itself
-comes with the distribution slice (ROADMAP Queue 1 item 16).
+is ``distributed.collectives.make_quantized_allreduce``.
 """
 
 from __future__ import annotations

@@ -1,0 +1,409 @@
+"""The distribution slice against JAX, on gloo ranks on the CPU (no card, no
+network): the logical-axis rules, the placements they give, the int8
+all-reduce, the trainer and server on a mesh, and the elastic restore.
+
+The JAX trainer does not run on this jax (its mesh path fails in
+``make_shard_fn``), so a trainer on a mesh is held against the port's own
+single-process trainer, which the other tests hold against JAX.  The ranks
+are processes running ``_torch_dist_tasks.py``; they meet through a file
+under ``tmp_path`` and each spawn has a time limit, so a hung rank fails its
+test rather than the run.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.sharding import AbstractMesh
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.configs import ShapeConfig as JaxShape
+from repro.distributed import sharding as jsh
+from repro.distributed.collectives import collective_wire_bytes as jax_wire
+from repro.models.model import build_model as jax_build_model
+from repro_torch.configs import ARCHS, ShapeConfig, get_arch
+from repro_torch.distributed import sharding as tsh
+from repro_torch.launch.mesh import MeshDesc, make_production_mesh
+from repro_torch.launch.train import Trainer
+from repro_torch.models import attention as attn
+from repro_torch.models.model import build_model
+from repro_torch.models.param import (DEFAULT_RULES, logical_to_spec,
+                                      named_leaves, pspecs, shardings)
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import _torch_dist_tasks as tasks  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+TASKS = Path(tasks.__file__)
+TOL = 1e-4          # the gradient tolerance of the port's train tests
+
+MESHES = [((16, 16), ("data", "model")),
+          ((2, 16, 16), ("pod", "data", "model")),
+          ((2, 2), ("data", "model")),
+          ((1, 4), ("data", "model"))]
+KINDS = {"train": dict(kind="train"), "decode": dict(kind="decode"),
+         "long_context": dict(kind="decode", long_context=True),
+         "seq_shard": dict(kind="decode", seq_shard="model"),
+         "no_fsdp": dict(kind="train", fsdp=False)}
+
+
+# ---------------------------------------------------------------- spawning
+def _start(tmp_path, task: str, world: int):
+    """Start ``world`` ranks of ``task``; -> (procs, out paths)."""
+    d = tmp_path / task
+    d.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    procs, outs = [], []
+    for r in range(world):
+        out = d / f"out{r}.pt"
+        procs.append(subprocess.Popen(
+            [sys.executable, str(TASKS), task, str(r), str(world),
+             str(d / "store"), str(out)],
+            stdout=subprocess.DEVNULL, stderr=open(d / f"err{r}.txt", "w"),
+            env=env, cwd=ROOT))
+        outs.append(out)
+    return procs, outs
+
+
+def _join(procs, outs, timeout: float):
+    """Every rank's output; a rank that fails or hangs fails the caller."""
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        err = outs[r].parent / f"err{r}.txt"
+        assert p.returncode == 0, f"rank {r}: {err.read_text()[-3000:]}"
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def _jax_subprocess(script: str, devices: int) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"--xla_force_host_platform_device_count={devices}")
+    return subprocess.Popen([sys.executable, "-c", textwrap.dedent(script)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env, cwd=ROOT)
+
+
+def _jax_result(proc) -> dict:
+    out, err = proc.communicate(timeout=600)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+# ------------------------------------------------------------ spec parity
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_specs_equal_jax_for_every_leaf_mesh_and_rule_kind(arch):
+    port, ref = build_model(ARCHS[arch]), jax_build_model(JAX_ARCHS[arch])
+    trees = [(port.param_specs(), ref.param_specs()),
+             (port.cache_specs(8, 4096), ref.cache_specs(8, 4096)),
+             (port.cache_specs(1, 512), ref.cache_specs(1, 512))]
+    checked = 0
+    for shape, names in MESHES:
+        desc, amesh = MeshDesc(names, shape), AbstractMesh(shape, names)
+        for kind in KINDS.values():
+            port_rules = tsh.make_rules(**kind)
+            jax_rules = jsh.make_rules(**kind)
+            assert port_rules == jax_rules
+            for ptree, jtree in trees:
+                got = tsh.pspec_for_specs(ptree, desc, port_rules)
+                want = jsh.pspec_for_specs(jtree, amesh, jax_rules)
+                # a mesh description serves JAX's functions as well
+                assert jsh.pspec_for_specs(jtree, desc, jax_rules) == want
+                for path, spec in named_leaves(got):
+                    w = want
+                    for k in path.split("/"):
+                        w = w[k]
+                    assert spec == tuple(w), (path, names, kind, spec, w)
+                    checked += 1
+    assert checked > 100
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "musicgen-medium",
+                                  "phi-3-vision-4.2b"])
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_batch_specs_equal_jax(arch, kind):
+    for shape, names in MESHES:
+        desc, amesh = MeshDesc(names, shape), AbstractMesh(shape, names)
+        rules = tsh.make_rules("train")
+        metas, placements = tsh.batch_specs(
+            ARCHS[arch], ShapeConfig("c", 4096, 256, kind), desc, rules)
+        jspecs, jshard = jsh.batch_specs(
+            JAX_ARCHS[arch], JaxShape("c", 4096, 256, kind), amesh,
+            jsh.make_rules("train"))
+        assert sorted(metas) == sorted(jspecs)
+        for k, m in metas.items():
+            assert tuple(m.shape) == jspecs[k].shape
+            assert str(m.dtype).split(".")[-1] == jspecs[k].dtype.name
+            assert placements[k] == tsh.placements_for(
+                tuple(jshard[k].spec), desc)
+
+
+def test_logical_to_spec_uses_a_mesh_axis_once_and_shardings_follow_it():
+    assert logical_to_spec(("fsdp", "batch", "model")) == \
+        (("pod", "data"), None, "model")
+    desc = make_production_mesh()
+    assert desc.shape == {"data": 16, "model": 16}
+    assert make_production_mesh(multi_pod=True).sizes == (2, 16, 16)
+    specs = build_model(ARCHS["gemma-2b"]).param_specs()
+    ps = dict(named_leaves(pspecs(specs, DEFAULT_RULES, desc)))
+    assert ps["blocks/attn/wq"] == (None, "data", "model", None)
+    pl = dict(named_leaves(shardings(specs, desc)))
+    from torch.distributed.tensor import Replicate, Shard
+    assert pl["blocks/attn/wq"] == (Shard(1), Shard(2))
+    assert pl["final_ln"] == (Replicate(), Replicate())
+    # a tuple entry splits one dim over mesh dims in mesh order only
+    pod = make_production_mesh(multi_pod=True)
+    assert tsh.placements_for((("pod", "data"), None), pod) == \
+        (Shard(0), Shard(0), Replicate())
+    with pytest.raises(ValueError, match="axis order"):
+        tsh.placements_for((("data", "pod"),), pod)
+
+
+# ------------------------------------------------------- gloo rank checks
+PLACEMENT_SCRIPT = """
+    import json
+    import jax, numpy as np
+    from jax.sharding import Mesh, NamedSharding
+    from repro.configs import get_arch, reduce_for_smoke
+    from repro.distributed.sharding import make_rules, spec_for
+    from repro.models.model import build_model
+    from repro.models.param import ParamSpec
+    import jax.tree_util as tu
+    specs = build_model(reduce_for_smoke(get_arch("gemma-2b"))).param_specs()
+    flat = {"/".join(str(k.key) for k in path): s for path, s in
+            tu.tree_flatten_with_path(
+                specs, is_leaf=lambda x: isinstance(x, ParamSpec))[0]}
+    out = {}
+    for shape, names in (((2, 2), ("data", "model")),
+                         ((2, 2, 1), ("pod", "data", "model"))):
+        devs = np.array(jax.devices()[:4]).reshape(shape)
+        mesh = Mesh(devs, names)
+        for p in %r:
+            s = flat[p]
+            spec = spec_for(s.shape, s.axes, mesh, make_rules("train"))
+            idx = NamedSharding(mesh, spec).devices_indices_map(s.shape)
+            out["/".join(names) + ":" + p] = [
+                [[sl.start or 0, sl.stop if sl.stop is not None else n]
+                 for sl, n in zip(idx[d], s.shape)]
+                for d in jax.devices()[:4]]
+    print(json.dumps(out))
+""" % (tasks.PLACED,)
+
+ALLREDUCE_SCRIPT = """
+    import json
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.distributed.collectives import make_quantized_allreduce
+    mesh = jax.make_mesh((2, 4), ("pod", "data"))
+    x = jnp.asarray(np.random.default_rng(0).standard_normal((8, 16)),
+                    jnp.float32)
+    out = make_quantized_allreduce(mesh, axis_name="pod")({"g": x})["g"]
+    print(json.dumps(np.asarray(out).tolist()))
+"""
+
+
+@pytest.fixture(scope="module")
+def world4(tmp_path_factory):
+    """The two 4-rank runs, ``task_world4`` and ``task_model2``, side by
+    side, each rank's outputs merged; the JAX placements; and the single-process references, made while
+    the ranks run: each family's trained state after 1 and 3 steps, the sum
+    of the learning rates those steps applied, and its served output."""
+    tmp = tmp_path_factory.mktemp("world4")
+    runs = [_start(tmp, task, 4) for task in ("world4", "model2")]
+    jax_proc = _jax_subprocess(PLACEMENT_SCRIPT, 4)
+    try:
+        ref = {}
+        for arch in tasks.ALL_ARCHS:
+            for steps in (1, 3):
+                t = Trainer(tasks.train_job(arch, steps, 1))
+                ref[arch, steps] = dict(
+                    tasks.trained(t.run(restore=False)),
+                    lr_sum=sum(float(t.opt.learning_rate(torch.tensor(s)))
+                               for s in range(1, steps + 1)))
+            ref[arch, "serve"] = tasks.served(arch, 1)
+        placements = _jax_result(jax_proc)
+    finally:
+        runs = [_join(procs, outs, timeout=900) for procs, outs in runs]
+    results = []                     # each rank's two outputs, as one
+    for a, b in zip(*runs):
+        results.append({**a, **b, "model2": {**a["model2"], **b["model2"]}})
+    return results, ref, placements
+
+
+def _close(a, b, tol=TOL):
+    """Within ``tol`` of ``b``'s largest magnitude."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.all(np.abs(a - b) <= tol * max(np.abs(b).max(), 1e-6)))
+
+
+def _same_training(got, want, arch):
+    """A meshed run's losses, moments and parameters against one process's.
+
+    The moments are held at TOL of their leaf's largest; those kept in
+    bfloat16 at 2**-7 of it, bfloat16's spacing there at most, since each
+    step rounds them to it.  A parameter moves by Adam's m / sqrt(v), about one
+    learning rate a step.  Where an element's own first moment is smaller
+    than its leaf's largest (a bias that starts at zero, a rope dimension
+    that barely turns), its steps are known only to a relative
+    tol * max|m| / |m|: the parameter is held at TOL of its leaf's largest
+    plus that share of the steps' learning rates, at most 2 of them (the two
+    runs' steps pointing apart).  A step misapplied on a shard moves an
+    element by a whole learning rate where the moments are large.
+    """
+    assert _close(got["losses"], want["losses"]), arch
+    tol = 2.0 ** -7 if get_arch(arch).adam_moment_dtype == "bfloat16" else TOL
+    for path, w in want["moments"].items():
+        assert _close(got["moments"][path], w, tol), (arch, path)
+    for path, w in want["params"].items():
+        m = np.abs(want["moments"]["m/" + path]).astype(np.float64)
+        known = np.minimum(2.0, tol * m.max() / np.maximum(m, 1e-30))
+        slack = TOL * np.abs(w).max() + want["lr_sum"] * known
+        err = np.abs(np.asarray(got["params"][path], np.float64) - w)
+        assert np.all(err <= slack), (arch, path, (err - slack).max())
+
+
+def test_each_rank_holds_the_slice_jax_gives_its_device(world4):
+    results, _, jax_idx = world4
+    params = build_model(tasks.reduce_for_smoke(tasks.get_arch(
+        "gemma-2b"))).init(torch.Generator().manual_seed(0), "cpu")
+    full = {p: t.numpy() for p, t in named_leaves(params)}
+    for key, per_device in jax_idx.items():
+        names, path = key.split(":")
+        for rank, bounds in enumerate(per_device):
+            want = full[path][tuple(slice(a, b) for a, b in bounds)]
+            got = results[rank]["shards"][tuple(names.split("/"))][path]
+            np.testing.assert_array_equal(got, want, err_msg=key)
+
+
+def test_gqa_kernel_call_on_a_model_axis_wider_than_the_kv_heads(world4):
+    results, _, _ = world4
+    gqa = results[0]["gqa"]
+    assert "Shard(dim=2)" not in gqa["kv_placements"]  # fit_spec left KV whole
+    q, k, v = tasks.gqa_inputs()
+    q.requires_grad_()
+    k.requires_grad_()
+    cfg = build_model(tasks.reduce_for_smoke(tasks.get_arch(
+        "gemma-2b"))).cfg.with_(num_heads=4, num_kv_heads=2)
+    o = attn.gqa_attend(q, k, v, cfg, impl="kernel")
+    (o * o).sum().backward()
+    np.testing.assert_allclose(gqa["out"], o.detach().numpy(), rtol=1e-6,
+                               atol=1e-6)
+    assert _close(gqa["dq"], q.grad.numpy(), 1e-5)
+    assert _close(gqa["dk"], k.grad.numpy(), 1e-5)
+
+
+@pytest.mark.parametrize("arch", tasks.ALL_ARCHS)
+def test_trainer_on_data2_model2_matches_one_process(world4, arch):
+    results, ref, _ = world4
+    for out in results:              # every rank returns the same history
+        got = out["model2"][arch]
+        assert got["mesh"] == (2, 2)
+        assert _close(got["losses"], ref[arch, 3]["losses"])
+    _same_training(results[0]["model2"][arch], ref[arch, 3], arch)
+
+
+@pytest.mark.parametrize("arch", tasks.ALL_ARCHS)
+def test_trainer_on_data4_matches_one_process(world4, arch):
+    """One step: its loss is taken before the update, so the moments and
+    parameters after it hold the gradient reduce-scatter and the optimizer
+    on shards against one process."""
+    results, ref, _ = world4
+    for out in results:
+        assert _close(out["data4"][arch]["losses"], ref[arch, 1]["losses"])
+    _same_training(results[0]["data4"][arch], ref[arch, 1], arch)
+
+
+def test_elastic_restore_across_world_sizes_is_bit_exact(world4):
+    results, _, _ = world4
+    saved = results[0]["saved"]
+    for rank in (0, 1):
+        restored = results[rank]["restored2"]
+        assert sorted(restored) == sorted(saved)
+        for k, v in saved.items():
+            np.testing.assert_array_equal(restored[k], v, err_msg=k)
+    # on (2, 1) the embedding's fsdp dim is split over the 2 data ranks
+    shape = results[0]["restored2_local"]["params/embed"]
+    assert tuple(shape) == (saved["params/embed"].shape[0],
+                            saved["params/embed"].shape[1] // 2)
+    for k, v in saved.items():
+        np.testing.assert_array_equal(results[0]["restored0"][k], v,
+                                      err_msg=k)
+    assert "restored2" not in results[2]
+
+
+def test_server_on_data2_model2_gives_the_meshless_tokens(world4):
+    """Every family: greedy tokens equal; for musicgen, whose codebooks
+    ``generate`` does not take, its decode logits within 1e-5 of their
+    largest."""
+    results, ref, _ = world4
+    for arch in tasks.ALL_ARCHS:
+        want = ref[arch, "serve"]
+        for out in results:
+            got = out["serve"][arch]
+            if want.dtype == np.int32:
+                np.testing.assert_array_equal(got, want, err_msg=arch)
+            else:
+                assert got.shape == want.shape
+                assert _close(got, want, 1e-5), arch
+
+
+def test_server_on_a_world_of_two_gives_the_meshless_tokens(tmp_path):
+    procs, outs = _start(tmp_path, "serve2", 2)
+    try:
+        want = tasks.served("granite-moe-1b-a400m", 1)
+    finally:
+        results = _join(procs, outs, timeout=400)
+    for out in results:
+        assert out["mesh"] == (1, 2)
+        np.testing.assert_array_equal(out["serve"], want)
+
+
+def test_quantized_allreduce_matches_jax_shard_map(tmp_path):
+    procs, outs = _start(tmp_path, "allreduce", 8)
+    jax_proc = _jax_subprocess(ALLREDUCE_SCRIPT, 8)
+    try:
+        want = np.asarray(_jax_result(jax_proc), np.float32)
+    finally:
+        results = _join(procs, outs, timeout=400)
+    x = np.random.default_rng(0).standard_normal((8, 16)).astype(np.float32)
+    mean = x.reshape(2, 4, 16).mean(axis=0)
+    for out in results:
+        got = out["allreduce"]
+        assert got.shape == want.shape == (4, 16)
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+        for y in (got, want):
+            assert np.abs(y - mean).max() / np.abs(mean).max() < 0.05
+        assert out["wire"] == (jax_wire({"g": jnp.asarray(x)}, True),
+                               jax_wire({"g": jnp.asarray(x)}, False))
+
+
+def test_quantized_psum_of_one_rank_is_jax_formula_in_numpy(tmp_path):
+    """In a world of one the int8 mean is the dequantized input: JAX's
+    formula in numpy."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import quantized_psum
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/s",
+                            rank=0, world_size=1)
+    try:
+        x = np.random.default_rng(1).standard_normal((5, 7)).astype(
+            np.float32)
+        got = quantized_psum(torch.from_numpy(x)).numpy()
+    finally:
+        dist.destroy_process_group()
+    scale = np.float32(np.abs(x).max() + np.float32(1e-12)) / np.float32(127)
+    q = np.clip(np.round(x / scale), -127, 127).astype(np.int32)
+    want = (q.astype(np.float32) * scale).astype(np.float32)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(x).max())

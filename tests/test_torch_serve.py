@@ -159,9 +159,11 @@ def test_temperature_sampling_is_seeded_and_in_vocab():
 
 
 def test_model_axis_and_unported_families_raise():
-    with pytest.raises(NotImplementedError, match="distribution"):
+    # every family serves on a model axis (tests/test_torch_distributed.py);
+    # in a world of one process a model axis of 2 fails JAX's assertion
+    with pytest.raises(AssertionError, match=r"\(1, 2\)"):
         Server(ServeJob(model_axis=2), device="cpu")
     assert build_model(get_arch("granite-moe-1b-a400m")).cfg.family == "moe"
     assert build_model(get_arch("deepseek-v3-671b")).cfg.attention == "mla"
-    with pytest.raises(NotImplementedError, match="distribution"):
+    with pytest.raises(AssertionError, match=r"\(1, 2\)"):
         Server(ServeJob(arch="deepseek-v3-671b", model_axis=2), device="cpu")
