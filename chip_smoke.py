@@ -168,6 +168,22 @@ code is not 0:
    ``blockwise_attention``, and one absorbed ``mla_decode`` layer at B=4,
    T=32768 beside its byte bound; and the script's total time.
 
+``[dryrun]`` lines, one for each step it predicts: the dry run
+(``launch/steps.py::trace_cell``: the step run once on fake tensors, with
+no mesh, each kernel call reported in place of a launch) against one real
+step of the same shape, dtype and remat on the card, right after the phase
+that runs it: gemma-2b training (phase 4), its prefill (phase 3a) and a
+decode step at the served cache (phase 3), mamba2-1.3b training (phase 7)
+and granite-moe-1b-a400m training (phase 10).  Gates: the predicted state
+bytes equal the real state's exactly; the predicted kernel calls equal the
+launch counters' delta; and, for gemma-2b's training and prefill, the
+predicted peak is within ``PEAK_RTOL`` of the card's (the card's
+``max_memory_allocated`` over the step, less what it held beside the
+step's arguments before the step).  Each line also gives the roofline's
+bound on H100 figures, its dominant term, ``mfu`` (``model_flops`` over
+the phase's median step s times 989e12) and the bound's share of the step.
+The real steps' launches are added to the ``{"kernels"}`` counts.
+
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -219,6 +235,9 @@ import repro_torch.launch.steps as steps_lib  # noqa: E402
 import repro_torch.models.attention as attn_lib  # noqa: E402
 import repro_torch.models.model as model_lib  # noqa: E402
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch.roofline import (  # noqa: E402
+    Roofline, active_param_count, model_flops)
 from repro_torch.launch.steps import train_state_specs  # noqa: E402
 from repro_torch.launch.train import Trainer, TrainJob  # noqa: E402
 from repro_torch.models import abstract, build_model, named_leaves  # noqa: E402
@@ -233,6 +252,7 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}   # tests/test_kernels.py
 DECODE_RTOL = 2e-2                                  # tests/test_models.py:83
 TRAIN_RTOL = 2e-2                                   # tests/test_models.py:83
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+PEAK_RTOL = 0.2      # [dryrun]: the predicted peak against the card's
 FP32_OPS_PER_S = 67e12           # H100 SXM, fp32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM, bf16 tensor cores, dense
 GEMMA = dict(B=4, H=8, Hkv=1, D=256)
@@ -1976,8 +1996,10 @@ def prefill(card: str, srv):
     gemma-2b; bf16's caches are reported, not held: the plain impls round
     P to bf16 before P·V, the kernel does not, and a leaf of a late layer
     differed by 0.0205 of its largest value.
+    Its ``[dryrun]`` runs one more prefill, with no ``head`` (the dry
+    run's step casts it).
     -> (flash launches, decode launches) of the phase's main path: the
-    three prefills and the bf16 continuation."""
+    three prefills, the ``[dryrun]`` prefill and the bf16 continuation."""
     cfg, params, head = srv.cfg, srv.params, srv.head
     B, S = PREFILL["B"], PREFILL["S"]
     L, V = _attention_layers(cfg), cfg.vocab_size
@@ -2007,6 +2029,10 @@ def prefill(card: str, srv):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cache_gb = sum(t.nbytes for _, t in named_leaves(cache)) / 1e9
     del logits, cache
+    flash_launches += dryrun(
+        card, f"{cfg.name} prefill", cfg, B, S, "prefill",
+        lambda: step(params, batch), params, statistics.median(walls),
+        hold_peak=True)["flash_attention"]
     groups = device_ms_by_group(lambda: step(params, batch, head=head),
                                 calls=1)
     torch.cuda.empty_cache()
@@ -2164,14 +2190,119 @@ def moe_layer(card: str):
     return report
 
 
-def granite(card: str):
+def granite(card: str) -> dict:
     """Phases 9 and 10: one granite MoE layer; granite's training from a
-    lake of Zipf tokens, then the trace of one of its steps by group."""
+    lake of Zipf tokens, then the trace of one of its steps by group and
+    its ``[dryrun]`` -> that step's launches."""
     moe_layer(card)
     lake = zipf_lake(GRANITE_JOB, get_arch(GRANITE).vocab_size)
     trainer, state, batch, _ = train(card, GRANITE_JOB, "train_granite", lake)
     trace_train(trainer, state, batch, card, "trace_train_granite",
                 groups=True)
+    return dryrun_train(card, trainer, state, batch)
+
+
+# ------------------------------------------------------------------ dryrun
+def dryrun(card: str, tag: str, cfg, B: int, S: int, kind: str, run,
+           state, step_s=None, hold_peak: bool = False, reps: int = 1
+           ) -> dict:
+    """``[dryrun]``: the dry run's count of one ``kind`` step of ``cfg`` at
+    (B, S), with no mesh, against ``reps`` real steps ``run()`` on the card,
+    whose state (the train state, or the parameters) is ``state``.  Gates:
+    state bytes equal, kernel calls equal the launch counters' delta a
+    step, and with ``hold_peak`` the peak within ``PEAK_RTOL``.  ``step_s``
+    is the phase's median step; None times the ``reps`` steps here.
+    -> the launch counters' delta."""
+    shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
+    t0 = time.perf_counter()
+    costs, memory, model, _ = steps_lib.trace_cell(cfg, shape, None)
+    trace_s = time.perf_counter() - t0
+    rl = Roofline(arch=cfg.name, shape=shape.name, mesh="none", chips=1,
+                  flops_per_device=costs.flops,
+                  bytes_per_device=costs.hbm_bytes, collective_bytes=0.0,
+                  collective_breakdown={},
+                  peak_memory_per_device=costs.peak_bytes,
+                  model_flops_total=model_flops(
+                      cfg, shape, active_param_count(cfg, model)),
+                  flops_by_dtype=costs.flops_by_dtype)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in named_leaves(state))
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _reset_counts()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = _counts()
+    raw_peak = torch.cuda.max_memory_allocated()
+    # what the card held beside the step's arguments is not the step's
+    others = before - memory["argument_bytes"]
+    measured = raw_peak - others
+    step_s = statistics.median(walls) if step_s is None else step_s
+    calls = {k: v // reps for k, v in launches.items() if v}
+    out = {
+        "card": card, "arch": cfg.name, "kind": kind, "batch": B, "seq": S,
+        "dtype": cfg.dtype, "remat": cfg.remat, "trace_s": trace_s,
+        "state_bytes": {"predicted": memory["state_bytes"],
+                        "measured": state_bytes},
+        "kernel_calls": {"predicted": costs.kernel_calls, "measured": calls,
+                         "launches": launches, "steps": reps},
+        "peak_bytes": {"predicted": costs.peak_bytes, "measured": measured,
+                       "ratio": costs.peak_bytes / measured,
+                       "max_memory_allocated": raw_peak,
+                       "held_beside_arguments": others,
+                       "gated": hold_peak, "rtol": PEAK_RTOL},
+        "memory_analysis": memory, "flops": costs.flops,
+        "flops_by_dtype": costs.flops_by_dtype, "hbm_bytes": costs.hbm_bytes,
+        "model_flops": rl.model_flops_total, "step_s": step_s,
+        "mfu": rl.model_flops_total / (step_s * BF16_OPS_PER_S),
+        "bound_s": rl.bound_s, "dominant": rl.dominant,
+        "bound_over_step": rl.bound_s / step_s,
+        "compute_s": rl.compute_s, "memory_s": rl.memory_s,
+    }
+    _say("dryrun", step=tag, **out)
+    if memory["state_bytes"] != state_bytes:
+        raise AssertionError(f"[dryrun] {tag}: state bytes {out['state_bytes']}")
+    if calls != costs.kernel_calls or any(v % reps for v in launches.values()):
+        raise AssertionError(f"[dryrun] {tag}: kernel calls "
+                             f"{out['kernel_calls']}")
+    if hold_peak and not abs(costs.peak_bytes / measured - 1) <= PEAK_RTOL:
+        raise AssertionError(f"[dryrun] {tag}: peak {out['peak_bytes']}")
+    return launches
+
+
+def dryrun_train(card: str, trainer, state, batch, hold_peak: bool = False
+                 ) -> dict:
+    """``[dryrun]`` of a trainer's step (it trains on), against the median
+    of its run's steps 2-8."""
+    job = trainer.job
+    step_s = statistics.median(h["sec"] for h in trainer.history[1:])
+    return dryrun(card, f"{trainer.cfg.name} train", trainer.cfg,
+                  job.global_batch, job.seq_len, "train",
+                  lambda: trainer.step_fn(state, batch), state, step_s,
+                  hold_peak)
+
+
+def dryrun_decode(card: str, srv, reps: int = 5) -> dict:
+    """``[dryrun]`` of one decode step of the served model at the served
+    cache (batch 4, 64 slots, the last position), through
+    ``make_decode_step`` (the output projection cast per step, as the dry
+    run's step does), timed over ``reps`` steps."""
+    B, T = 4, 64
+    model = build_model(srv.cfg)
+    step = steps_lib.make_decode_step(model)
+    cache = model.init_cache(B, T, srv.device)
+    tokens = torch.zeros((B,), dtype=torch.int32, device=srv.device)
+    launches = dryrun(card, f"{srv.cfg.name} decode", srv.cfg, B, T,
+                      "decode", lambda: step(srv.params, cache, tokens,
+                                             T - 1), srv.params, reps=reps)
+    del cache
+    return launches
 
 
 # ------------------------------------------------------------ deepseek-v3
@@ -2614,6 +2745,7 @@ def main() -> None:
     feed_launches, feed_err = image_feed(card)
     torch.cuda.empty_cache()
     srv, launches = serve(card, "gemma-2b")
+    launches += dryrun_decode(card, srv)["decode_attention"]
     served = srv.served
     trace(srv, card)
     prefill_flash, prefill_decode = prefill(card, srv)
@@ -2628,6 +2760,8 @@ def main() -> None:
     restored = dist_restore(trainer.ckpt, state)
     resume(card)
     trace_train(trainer, state, batch, card)
+    flash_launches += dryrun_train(card, trainer, state, batch,
+                                   hold_peak=True)["flash_attention"]
     del trainer, state, batch
     torch.cuda.empty_cache()
     dist_flash, dist_decode = dist(card, train_ref, served, restored)
@@ -2638,11 +2772,12 @@ def main() -> None:
                                           lake)
     ssd_launches = counts["ssd_scan"]
     trace_train(trainer, state, batch, card, "trace_train_mamba2")
+    ssd_launches += dryrun_train(card, trainer, state, batch)["ssd_scan"]
     del trainer, state, batch, lake
     torch.cuda.empty_cache()
     zamba2_train = zamba2(card, ssd_zamba2)
     torch.cuda.empty_cache()
-    granite(card)
+    flash_launches += granite(card)["flash_attention"]
     torch.cuda.empty_cache()
     for arch in ("mamba2-1.3b", "zamba2-2.7b", GRANITE):
         serve(card, arch)

@@ -179,6 +179,24 @@ def distribute(x: torch.Tensor, mesh, placements) -> torch.Tensor:
     return distribute_tensor(x, mesh, placements, src_data_rank=None)
 
 
+def sharded(make, shape: Tuple[int, ...], dtype: torch.dtype, mesh,
+            placements, device=None) -> torch.Tensor:
+    """A DTensor of global ``shape`` and ``placements`` on ``mesh`` whose
+    shard on this rank ``make`` (``torch.zeros``, ``torch.empty``, ...)
+    makes: no rank ever holds the whole tensor."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    with unset_fake_temporarily():      # it reads index tensors' values
+        local_shape = compute_local_shape_and_global_offset(
+            shape, mesh, placements)[0]
+    local = make(local_shape, dtype=dtype, device=device)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=torch.Size(shape), stride=stride)
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
@@ -217,6 +235,16 @@ def replicate(x: torch.Tensor) -> torch.Tensor:
         return x
     from torch.distributed.tensor import Replicate
     return distribute(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def reduce_pending(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its pending sums reduced (an all-reduce over each mesh dim
+    where it is ``Partial``) and its splits kept; a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return distribute(x, x.device_mesh, [Replicate() if p.is_partial() else p
+                                         for p in x.placements])
 
 
 class _ContiguousGrad(torch.autograd.Function):

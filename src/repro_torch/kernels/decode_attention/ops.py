@@ -10,7 +10,10 @@ kernel, and anything the kernel cannot take raises.
 The wrapper is called once per attention layer and token, so what it does on
 the host is kept small: the library is loaded and bound once a process, the
 card's SM count read once a device, and scratch allocated only when the plan
-has more than one split.
+has more than one split.  A fake tensor (the dry run, ``kernels/_fake.py``),
+on any device, takes the kernel's route up to the launch, planned for an
+H100's SMs, allocates the same scratch, and reports the call with
+:func:`costs` in its place.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, _fake
 from .ref import decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
@@ -142,6 +145,16 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
+def costs(q, cache_k, limit: int):
+    """(operations, bytes) of one call, as its bound counts them: the
+    ``limit`` valid keys and values of each KV head read once, q read and
+    the output written once; QK^T and PV, 2 each a key, head and dim."""
+    B, H, D = q.shape
+    Hkv = cache_k.shape[2]
+    nbytes = (2 * B * limit * Hkv * D + 2 * B * H * D) * q.element_size()
+    return 4 * B * H * limit * D, nbytes
+
+
 def _check(q, cache_k, cache_v):
     if q.dim() != 3 or cache_k.dim() != 4 or cache_k.shape != cache_v.shape:
         raise ValueError(f"want q (B,H,D) and caches (B,T,Hkv,D); got "
@@ -168,9 +181,10 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
     _check(q, cache_k, cache_v)
-    if q.device.type == "cpu":
+    fake = _fake.is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return decode_attention_ref(q, cache_k, cache_v, pos=pos, window=window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"no decode attention for device {q.device}")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == cache_k.dtype
                                           == cache_v.dtype):
@@ -181,13 +195,21 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if D % 8 or D > MAX_D:
         raise ValueError(f"head dim {D} is not a multiple of 8 up to {MAX_D}")
     for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+        if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    lib = build()
     limit = min(pos + 1, T)   # both cache rules: idx <= pos, and idx < T
-    p = plan(B, H, Hkv, D, limit, _sm_count(q.device), q.dtype)
+    if fake:
+        from repro_torch.launch.mesh import H100
+        n_sm = H100["sm_count"]
+    else:
+        lib = build()
+        n_sm = _sm_count(q.device)
+    p = plan(B, H, Hkv, D, limit, n_sm, q.dtype)
     out = torch.empty_like(q)
     part_acc, part_ml = scratch(p, B, H, D, q.device)
+    if fake:
+        _fake.call("decode_attention", *costs(q, cache_k, limit), q.dtype)
+        return out
     with torch.cuda.device(q.device):   # the runtime launches on the current one
         err = lib.decode_attention_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), cache_k.data_ptr(),

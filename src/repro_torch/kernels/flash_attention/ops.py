@@ -10,7 +10,9 @@ a ``custom_vjp``: its forward is the kernel on a CUDA tensor and the plain
 version (``ref.py``) on a CPU tensor; its backward recomputes attention
 through ``ref_attention`` under autograd, exactly as the JAX backward does
 (there is no backward kernel in either package yet).  A CUDA tensor the
-kernel cannot take raises; nothing falls back.
+kernel cannot take raises; nothing falls back.  A fake tensor (the dry run,
+``kernels/_fake.py``), on any device, takes the kernel's route up to the
+launch and reports the call with :func:`costs` in its place.
 """
 
 from __future__ import annotations
@@ -20,9 +22,10 @@ import math
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, _fake
 from .ref import ref_attention
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
@@ -73,8 +76,29 @@ def _check(q, k, v):
         raise ValueError("q, k and v lie on different devices")
 
 
-def _kernel_forward(q, k, v, causal: bool, window: int, scale: float):
-    """Launch the kernel: q (B,S,H,D), k/v (B,T,Hkv,D) on one CUDA device."""
+def pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the kernel computes: query i sees key j < T
+    with j <= i when ``causal`` and i - j < ``window`` when windowed."""
+    i = np.arange(S, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    hi = np.minimum(i, T - 1) if causal else np.full_like(i, T - 1)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def costs(q, k, causal: bool, window: int):
+    """(operations, bytes) of one call, as its bound counts them: QK^T and
+    PV, 2 each a (query, key) pair and head dim; q, k and v read once and
+    the output written once."""
+    B, S, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    ops = 4 * B * H * D * pairs(S, T, causal, window)
+    return ops, (2 * B * S * H * D + 2 * B * T * Hkv * D) * q.element_size()
+
+
+def _kernel_forward(q, k, v, causal: bool, window: int, scale: float,
+                    fake: bool = False):
+    """Launch the kernel: q (B,S,H,D), k/v (B,T,Hkv,D) on one CUDA device;
+    for ``fake`` tensors, report the call instead."""
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"want fp32 or bf16 throughout; got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
@@ -85,11 +109,14 @@ def _kernel_forward(q, k, v, causal: bool, window: int, scale: float):
     if B > MAX_GRID_YZ or H > MAX_GRID_YZ or window < 0:
         raise ValueError(f"unsupported B={B}, H={H}, window={window}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if fake:
+        _fake.call("flash_attention", *costs(q, k, causal, window), q.dtype)
+        return out
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     lib = build()
-    out = torch.empty_like(q)
     with torch.cuda.device(q.device):   # the runtime launches on the current one
         err = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -106,6 +133,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, scale)
+        if _fake.is_fake(q):
+            return _kernel_forward(q, k, v, causal, window, scale, fake=True)
         if q.device.type == "cpu":
             return ref_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)

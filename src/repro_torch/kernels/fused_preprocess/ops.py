@@ -4,7 +4,9 @@
 shared library with a plain C interface at first use, and loaded with
 ``ctypes`` (``kernels/_build.py``).  Tensors on the CPU go through the plain
 version in ``ref.py``; tensors on a CUDA device launch the kernel on the
-current stream, and anything the kernel cannot take raises.
+current stream, and anything the kernel cannot take raises.  A fake tensor
+(the dry run, ``kernels/_fake.py``), on any device, takes the kernel's route
+up to the launch and reports the call with :func:`costs` in its place.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .. import _build
+from .. import _build, _fake
 from .ref import ref_preprocess
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_preprocess.cu"
@@ -46,6 +48,14 @@ def build() -> ctypes.CDLL:
     return _build.load(SOURCE, _bind)
 
 
+def costs(out: torch.Tensor):
+    """(operations, bytes) of one call, as its bound counts them: the
+    window's uint8 read and the fp32 output written once; a subtract and
+    two products an element."""
+    n = out.numel()
+    return 3 * n, n * (1 + 4)
+
+
 def fused_preprocess(images: torch.Tensor, crop: Tuple[int, int, int, int],
                      mean: Sequence[float], std: Sequence[float]
                      ) -> torch.Tensor:
@@ -67,9 +77,10 @@ def fused_preprocess(images: torch.Tensor, crop: Tuple[int, int, int, int],
     if len(mean) != C or len(std) != C:
         raise ValueError(f"want {C} means and stds; got {len(mean)} and "
                          f"{len(std)}")
-    if images.device.type == "cpu":
+    fake = _fake.is_fake(images)
+    if images.device.type == "cpu" and not fake:
         return ref_preprocess(images, (y0, x0, h, w), mean, std)
-    if images.device.type != "cuda":
+    if images.device.type != "cuda" and not fake:
         raise ValueError(f"no fused preprocess for device {images.device}")
     if images.dtype != torch.uint8 or not images.is_contiguous():
         raise ValueError(f"want contiguous uint8 images; got {images.dtype}"
@@ -79,6 +90,9 @@ def fused_preprocess(images: torch.Tensor, crop: Tuple[int, int, int, int],
                          f"rows of {w * C} elements (each below {MAX_EXTENT})")
     out = torch.empty((B, h, w, C), dtype=torch.float32, device=images.device)
     if out.numel() == 0:
+        return out
+    if fake:
+        _fake.call("fused_preprocess", *costs(out), torch.float32)
         return out
     lib = build()
     mean_c, std_c = (ctypes.c_float * C)(*mean), (ctypes.c_float * C)(*std)

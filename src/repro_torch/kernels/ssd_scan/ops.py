@@ -12,7 +12,10 @@ fp32 inputs run one CUDA-core kernel on contiguous tensors.
 ``ssd_chunked`` on a CPU tensor; its backward recomputes through
 ``ssd_chunked`` under autograd, exactly as the JAX backward does (there is no
 backward kernel in either package).  A CUDA tensor no route can take
-raises; nothing falls back.
+raises; nothing falls back.  A fake tensor (the dry run,
+``kernels/_fake.py``), on any device, takes the kernel's route up to the
+launch, allocates the same outputs and scratch, and reports the call with
+:func:`costs` in its place.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.models.ssm import _chunk_len, ssd_chunked
 
-from .. import _build
+from .. import _build, _fake
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 # Mirrors of the CUDA source's constants (a CPU test parses them).
@@ -106,6 +109,19 @@ def scratch_shapes(B: int, S: int, nh: int, P: int, G: int, N: int, Q: int
             "acum": (B, nh, S)}
 
 
+def costs(x, Bm, Q: int):
+    """(operations, bytes) of one call, as its bound counts them:
+    Q(Q+1)(N+P) + 4QNP operations for each (batch, head, chunk); x, dt, A,
+    B and C read once, y and the fp32 final state written once."""
+    B, S, nh, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    ops = B * nh * (S // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    item = x.element_size()
+    nbytes = (2 * B * S * nh * P * item + B * S * nh * 4
+              + 2 * B * S * G * N * item + B * nh * N * P * 4 + nh * 4)
+    return ops, nbytes
+
+
 def _strided(t: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
     """A (B, S, heads, D) tensor as the bf16 passes read it: itself and its
     batch, token and head strides, as long as its last dimension is
@@ -134,8 +150,9 @@ def _check(x, dt, A, Bm, Cm, chunk: int) -> int:
     return _chunk_len(S, chunk)
 
 
-def _kernel_forward(x, dt, A, Bm, Cm, Q: int):
-    """Launch a route on one CUDA device -> y (B,S,nh,P), state fp32."""
+def _kernel_forward(x, dt, A, Bm, Cm, Q: int, fake: bool = False):
+    """Launch a route on one CUDA device -> y (B,S,nh,P), state fp32; for
+    ``fake`` tensors, report the call instead."""
     if x.dtype not in (torch.float32, torch.bfloat16) or \
             not (x.dtype == Bm.dtype == Cm.dtype):
         raise ValueError(f"want x, B and C all fp32 or all bf16; got "
@@ -147,25 +164,29 @@ def _kernel_forward(x, dt, A, Bm, Cm, Q: int):
     if N % 4 or N > MAX_N or P > MAX_P or Q > MAX_Q:
         raise ValueError(f"unsupported N={N} (a multiple of 4 up to {MAX_N}),"
                          f" P={P} (up to {MAX_P}) or chunk {Q} (up to {MAX_Q})")
-    lib = build()
+    lib = None if fake else build()
     dt, A = dt.contiguous(), A.contiguous()
     dev = x.device
     y = torch.empty((B, S, nh, P), dtype=x.dtype, device=dev)
     state = torch.empty((B, nh, N, P), dtype=torch.float32, device=dev)
+    if x.dtype == torch.float32:
+        x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
+    else:
+        (x, xs), (Bm, bs), (Cm, cs) = (_strided(t) for t in (x, Bm, Cm))
+        scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+                   for name, shape in scratch_shapes(B, S, nh, P, G, N,
+                                                     Q).items()}
+    if fake:
+        _fake.call("ssd_scan", *costs(x, Bm, Q), x.dtype)
+        return y, state
     with torch.cuda.device(dev):   # the runtime launches on the current one
         stream = torch.cuda.current_stream(dev).cuda_stream
         if x.dtype == torch.float32:
-            x, Bm, Cm = x.contiguous(), Bm.contiguous(), Cm.contiguous()
             err = lib.ssd_scan_launch(
                 x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
                 B, S, nh, P, G, N, Q, stream)
         else:
-            (x, xs), (Bm, bs), (Cm, cs) = (_strided(t) for t in (x, Bm, Cm))
-            scratch = {name: torch.empty(shape, dtype=torch.float32,
-                                         device=dev)
-                       for name, shape in scratch_shapes(B, S, nh, P, G, N,
-                                                         Q).items()}
             err = lib.ssd_scan_mma_launch(
                 x.data_ptr(), *xs, dt.data_ptr(), A.data_ptr(),
                 Bm.data_ptr(), *bs, Cm.data_ptr(), *cs, y.data_ptr(),
@@ -184,6 +205,8 @@ class _SSD(torch.autograd.Function):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
+        if _fake.is_fake(x):
+            return _kernel_forward(x, dt, A, Bm, Cm, Q, fake=True)
         if x.device.type == "cpu":
             return ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
         if x.device.type != "cuda":

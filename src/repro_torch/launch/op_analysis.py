@@ -1,0 +1,230 @@
+"""Per-device costs of one step, counted op by op as it is dispatched (the
+counterpart of the JAX package's ``launch/hlo_analysis.py``).
+
+JAX lowers a step to HLO and parses it; the port runs its step once, eagerly,
+under :class:`OpCounter`, a ``TorchDispatchMode``, usually on fake tensors
+(``launch/steps.py::trace_cell``), and counts what reaches the dispatcher.
+Under a mesh the counter declines every DTensor op, so that DTensor hands it
+the op on each rank's local shards: what it counts is one device's work.
+Eager dispatch visits every iteration of every loop, so no trip count has to
+be multiplied in, as ``hlo_analysis`` must for a scan.
+
+* ``flops`` - the matmul family (``mm``, ``addmm``, ``bmm``, ``baddbmm``,
+  convolutions, SDPA) by ``torch.utils.flop_counter``'s formulas, and each
+  kernel call by its own bound's count (``kernels/_fake.py``); elementwise
+  ops count none, as in ``hlo_analysis``.  ``flops_by_dtype`` splits them by
+  the dtype of the first operand.
+* ``hbm_bytes`` - every op's tensor operands read and results written once:
+  eager PyTorch fuses nothing.  Views, allocations and metadata ops are
+  free; a kernel call counts its bound's bytes.
+* ``collective_bytes``, ``collective_by_kind``, ``collective_count`` - the
+  ``_c10d_functional`` collectives, each by the bytes of its result, as
+  ``hlo_analysis`` counts a collective's result shape; the bytes of those
+  whose group spans more than one node of ``node_size`` ranks are also in
+  ``collective_bytes_across_nodes``.
+* ``peak_bytes`` - the most bytes of storage alive at once: the tensors held
+  when the counter starts (``hold``), then every storage an op returns,
+  until it is freed.
+* ``kernel_calls`` - the kernel wrappers' calls, by name.
+
+The fake tensors that DTensor makes to propagate a sharding (global shapes,
+no part of any rank's work) are not counted.
+"""
+
+from __future__ import annotations
+
+import weakref
+from collections import Counter, defaultdict
+from dataclasses import asdict, dataclass, field
+from typing import Dict
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+from torch.utils.flop_counter import flop_registry
+
+from repro_torch.kernels import _fake
+
+aten = torch.ops.aten
+
+# ops that move no bytes: allocations, metadata, and a view that its schema
+# does not mark as one
+FREE = {aten.empty.memory_format, aten.empty_strided.default,
+        aten.empty_like.default, aten.new_empty.default,
+        aten.new_empty_strided.default, aten._unsafe_view.default,
+        aten._local_scalar_dense.default, aten.lift_fresh.default,
+        torch.ops.prim.device.default}
+
+# the functional collectives by JAX's names for them; the waits and autograd
+# wrappers around them move nothing
+COLLECTIVES = {"all_gather_into_tensor": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+@dataclass
+class Costs:
+    flops: float = 0.0
+    flops_by_dtype: Dict[str, float] = field(default_factory=dict)
+    hbm_bytes: float = 0.0
+    collective_bytes: float = 0.0
+    collective_by_kind: Dict[str, float] = field(default_factory=dict)
+    collective_count: Dict[str, int] = field(default_factory=dict)
+    collective_bytes_across_nodes: float = 0.0
+    peak_bytes: int = 0
+    kernel_calls: Dict[str, int] = field(default_factory=dict)
+
+    def to_json(self) -> dict:
+        return asdict(self)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _plain(types) -> bool:
+    """Whether every tensor type of an op is a plain or a fake tensor."""
+    return all(t is torch.Tensor or issubclass(t, _fake.FakeTensor)
+               for t in types)
+
+
+class OpCounter(TorchDispatchMode):
+    """Counts the ops dispatched while it is active into ``self.costs``."""
+
+    def __init__(self, node_size: int = 8):
+        super().__init__()
+        self.costs = Costs()
+        self.node_size = node_size
+        self._live: Dict[int, int] = {}      # storage key -> bytes
+        self._live_bytes = 0
+        self._depth = 0                      # entries, as in a decomposition
+        self._quiet = 0
+        self._flops = defaultdict(float)
+        self._groups: Dict[str, bool] = {}   # group name -> across nodes
+        self._counts: Counter = Counter()
+        self._by_kind = defaultdict(float)
+        self._calls: Counter = Counter()
+
+    # ------------------------------------------------------------ storages
+    def hold(self, tensors) -> None:
+        """Count ``tensors`` (plain, fake or DTensors: their local shards) as
+        alive from now until they are freed."""
+        from torch.distributed.tensor import DTensor
+        for t in tensors:
+            self._track(t._local_tensor if isinstance(t, DTensor) else t)
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self._live:
+            return
+        n = st.nbytes()
+        self._live[key] = n
+        self._live_bytes += n
+        self.costs.peak_bytes = max(self.costs.peak_bytes, self._live_bytes)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self._live_bytes -= self._live.pop(key, 0)
+
+    # ------------------------------------------------------------- kernels
+    def kernel_call(self, name: str, flops: float, nbytes: float,
+                    dtype: torch.dtype) -> None:
+        self._calls[name] += 1
+        self._flops[_dtype_name(dtype)] += flops
+        self.costs.hbm_bytes += nbytes
+
+    # ------------------------------------------------------------ dispatch
+    def __enter__(self):
+        # entered again for each op it decomposes: set up the first time
+        self._depth += 1
+        if self._depth == 1:
+            from torch.distributed.tensor import DTensor
+            prop = DTensor._op_dispatcher.sharding_propagator
+            inner = prop._propagate_tensor_meta_non_cached
+
+            def quiet(op_schema):
+                self._quiet += 1
+                try:
+                    return inner(op_schema)
+                finally:
+                    self._quiet -= 1
+            prop._propagate_tensor_meta_non_cached = quiet
+            self._prop = prop
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self._depth -= 1
+        if self._depth == 0:
+            del self._prop._propagate_tensor_meta_non_cached
+            c = self.costs
+            c.flops_by_dtype = dict(self._flops)
+            c.flops = sum(self._flops.values())
+            c.collective_by_kind = dict(self._by_kind)
+            c.collective_count = dict(self._counts)
+            c.collective_bytes = sum(self._by_kind.values())
+            c.kernel_calls = dict(self._calls)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if not _plain(types):
+            return NotImplemented       # DTensor: its local ops come back
+        if func.namespace == "aten" and \
+                torch._C._dispatch_has_kernel_for_dispatch_key(
+                    func.name(), "CompositeImplicitAutograd"):
+            # as in inference mode, where such ops (matmul, einsum, ...)
+            # arrive whole: their parts come back to this mode
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        if self._quiet:
+            return out
+        outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
+        for o in outs:
+            self._track(o)
+        if func in FREE or func.is_view:
+            return out
+        ns, name = func.namespace, func._opname
+        if ns == "_c10d_functional":
+            if name not in NOT_COLLECTIVES:
+                if name not in COLLECTIVES:
+                    raise NotImplementedError(f"no count for {func}")
+                self._collective(COLLECTIVES[name], func, args, kwargs, outs)
+            return out
+        ins = [a for a in tree_flatten((args, kwargs))[0]
+               if isinstance(a, torch.Tensor)]
+        self.costs.hbm_bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes,
+                                                                 outs))
+        formula = flop_registry.get(func.overloadpacket)
+        if formula is not None:
+            self._flops[_dtype_name(ins[0].dtype)] += formula(
+                *args, **kwargs, out_val=out)
+        return out
+
+    def _collective(self, kind: str, func, args, kwargs, outs) -> None:
+        nbytes = sum(map(_nbytes, outs))
+        self._counts[kind] += 1
+        self._by_kind[kind] += nbytes
+        named = dict(zip((a.name for a in func._schema.arguments), args))
+        group = {**named, **kwargs}["group_name"]
+        if self._across_nodes(group):
+            self.costs.collective_bytes_across_nodes += nbytes
+
+    def _across_nodes(self, group: str) -> bool:
+        across = self._groups.get(group)
+        if across is None:
+            import torch.distributed as dist
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+            ranks = dist.get_process_group_ranks(_resolve_process_group(group))
+            across = self._groups[group] = \
+                len({r // self.node_size for r in ranks}) > 1
+        return across

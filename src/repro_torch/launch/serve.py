@@ -120,8 +120,6 @@ class Server:
         B, P = prompts.shape
         total = P + new
         cache = self.model.init_cache(B, total, self.device)
-        if self.mesh is not None:
-            cache = self._place(self.model.cache_specs(B, total), cache)
         gen = torch.Generator(self.device).manual_seed(job.seed)
         out = np.zeros((B, total), np.int32)
         out[:, :P] = prompts

@@ -30,8 +30,9 @@ they stay whole, and each rank gives the kernel only the KV heads its query
 heads use.
 
 MLA runs no kernel, as in JAX: training and prefill expand K/V from the
-latents and run the plain ``blockwise_attention`` under every impl; decode
-is the absorbed form in plain ops over a cache of the latents only.
+latents and run the plain ``blockwise_attention`` under every impl (on each
+rank's shards under a mesh, through ``local_call``, as a kernel); decode is
+the absorbed form in plain ops over a cache of the latents only.
 """
 
 from __future__ import annotations
@@ -368,8 +369,14 @@ def mla_train(params, x, positions, cfg, *, impl: str = "kernel"
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
     v_pad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
-    out = blockwise_attention(q, k, v_pad, scale=scale, causal=True,
-                              pairs=(impl == "torch_pairs"))
+    # on each rank's (batch, head) shards, as the kernels run: DTensor's
+    # einsum would merge a data-split batch dim with a model-split head dim
+    # into one strided-shard dim, whose bmm it can place only by reading
+    # values (which a fake tensor has not)
+    out = local_call(
+        lambda q, k, v: blockwise_attention(q, k, v, scale=scale, causal=True,
+                                            pairs=(impl == "torch_pairs")),
+        q, (k, v_pad), q_dim=2, group_dim=2)
     out = out[..., : m.v_head_dim]
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 

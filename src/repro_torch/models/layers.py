@@ -105,15 +105,37 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 # ---------------------------------------------------------------- remat
+_MATMULS = {"dots": ("mm", "addmm", "bmm", "baddbmm"),
+            "dots_no_batch": ("mm", "addmm")}
+
+
+def _saving(ops) -> Callable:
+    """A selective-checkpoint context that keeps the outputs of ``ops`` (aten
+    names) and recomputes the rest in the backward pass."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    save = {getattr(torch.ops.aten, name).default for name in ops}
+
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if func in save
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
 def maybe_remat(fn: Callable, policy_name: str) -> Callable:
     """``"full"`` recomputes ``fn`` in the backward pass (JAX's
-    ``nothing_saveable``); ``"none"`` keeps its activations."""
+    ``nothing_saveable``); ``"none"`` keeps its activations; ``"dots"``
+    keeps the matmuls' outputs (``checkpoint_dots``) and ``"dots_no_batch"``
+    those of products with no batch dimension, ``mm`` and ``addmm``
+    (``checkpoint_dots_with_no_batch_dims``), recomputing the rest.  A
+    kernel's output is recomputed, as JAX recomputes a ``pallas_call``,
+    which is no dot."""
     if policy_name == "none":
         return fn
     if policy_name == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
-    if policy_name in ("dots", "dots_no_batch"):
-        raise NotImplementedError(
-            f"remat policy {policy_name!r} is not ported yet; see ROADMAP "
-            "Queue 1 item 4 (dense model and loss)")
+    if policy_name in _MATMULS:
+        context_fn = _saving(_MATMULS[policy_name])
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=context_fn)
     raise ValueError(f"unknown remat policy {policy_name!r}")

@@ -55,13 +55,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import gather_axes
+from repro_torch.distributed.sharding import (gather_axes, sharded,
+                                              sharding_for_specs)
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (embed, maybe_remat, mlp, mlp_specs, rmsnorm,
                      softmax_cross_entropy)
-from .param import ParamSpec, materialize, tree_map
+from .param import (ParamSpec, materialize, named_leaves, torch_dtype,
+                    tree_map, unflatten)
 
 
 Identity = lambda x, axes=None: x
@@ -277,8 +279,13 @@ class Model:
     def _shared_attn_block(self, p, h, positions):
         cfg = self.cfg
         hn = rmsnorm(p["ln1"], h, cfg.norm_eps)
-        h = h + attn.gqa_train(p["attn"], hn, positions, self.shared_cfg,
-                               impl=self.attn_impl)
+        # pinned as a dense block's: left as the attention's pending sum
+        # over the model axis, the norm's square would reduce-scatter it
+        # over the sequence
+        h = self.shard(h + attn.gqa_train(p["attn"], hn, positions,
+                                          self.shared_cfg,
+                                          impl=self.attn_impl),
+                       ("batch", None, None))
         if "mlp" in p:
             hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
             h = h + mlp(p["mlp"], hn, cfg.mlp)
@@ -446,7 +453,7 @@ class Model:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         h = self._embed_tokens(params, batch)
-        cache = self.init_cache(B, S, h.device)
+        cache = self.init_cache(B, S, tokens.device)
         h = self._backbone_with_cache(params, h, positions, cache)
         h = rmsnorm(params["final_ln"], h[:, -1:], cfg.norm_eps)
         return self._logits(params, h, head)[:, 0], cache
@@ -464,11 +471,13 @@ class Model:
         else:
             a, kv = attn.gqa_prefill(p["attn"], hn, positions, cfg,
                                      window=window, impl=self.attn_impl)
-        h = h + a
+        h = self.shard(h + a, ("batch", None, None))
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if "moe" in p:
-            return h + moe_lib.moe_apply(p["moe"], hn, cfg)[0], kv
-        return h + mlp(p["mlp"], hn, cfg.mlp), kv
+            out = moe_lib.moe_apply(p["moe"], hn, cfg, shard=self.shard)[0]
+        else:
+            out = mlp(p["mlp"], hn, cfg.mlp)
+        return self.shard(h + out, ("batch", None, None)), kv
 
     def _backbone_with_cache(self, params, h, positions, cache):
         """The layers' forward, each layer's cache written into its slot of
@@ -485,7 +494,7 @@ class Model:
                 hn = rmsnorm(p["ln"], h, cfg.norm_eps)
                 out, state, conv = ssm_lib_prefill(p["ssm"], hn, cfg,
                                                    self.attn_impl)
-                h = h + out
+                h = self.shard(h + out, ("batch", None, None))
                 put((cache["state"], cache["conv"]), i, (state, conv))
             return h
         if cfg.family == "hybrid":
@@ -494,17 +503,18 @@ class Model:
                 hn = rmsnorm(shared["ln1"], h, cfg.norm_eps)
                 a, kv = attn.gqa_prefill(shared["attn"], hn, positions,
                                          self.shared_cfg, impl=self.attn_impl)
-                h = h + a
+                h = self.shard(h + a, ("batch", None, None))
                 put((cache["attn_k"], cache["attn_v"]), n, kv)
                 if "mlp" in shared:
                     hn = rmsnorm(shared["ln2"], h, cfg.norm_eps)
-                    h = h + mlp(shared["mlp"], hn, cfg.mlp)
+                    h = self.shard(h + mlp(shared["mlp"], hn, cfg.mlp),
+                                   ("batch", None, None))
                 for i, layer in enumerate(_unbind(p)):
                     layer = self._whole(layer)
                     hn = rmsnorm(layer["ln"], h, cfg.norm_eps)
                     out, state, conv = ssm_lib_prefill(layer["ssm"], hn, cfg,
                                                        self.attn_impl)
-                    h = h + out
+                    h = self.shard(h + out, ("batch", None, None))
                     put((cache["state"], cache["conv"]), (n, i),
                         (state, conv))
             return h
@@ -626,8 +636,19 @@ class Model:
         return out
 
     def init_cache(self, batch: int, max_len: int, device):
-        # every cache leaf is zeros, so no generator is drawn from
-        return materialize(self.cache_specs(batch, max_len), None, device)
+        """Zeros of ``cache_specs``; under a mesh, DTensors placed by the
+        model's rules, each rank making only its own shard."""
+        specs = self.cache_specs(batch, max_len)
+        mesh = getattr(self.shard, "mesh", None)
+        if mesh is None:
+            # every cache leaf is zeros, so no generator is drawn from
+            return materialize(specs, None, device)
+        placements = dict(named_leaves(sharding_for_specs(
+            specs, mesh, self.shard.rules)))
+        return unflatten(
+            (path, sharded(torch.zeros, s.shape, torch_dtype(s.dtype), mesh,
+                           placements[path], device))
+            for path, s in named_leaves(specs))
 
     # ---------------------------------------------------------------- logits
     def logits_weight(self, params) -> torch.Tensor:
@@ -647,7 +668,11 @@ class Model:
         w = self.logits_weight(params) if head is None else head
         hf = h.float()
         if cfg.num_codebooks:
-            logits = torch.einsum("bsd,dkv->bskv", hf, w)
+            # a product a codebook: on a mesh, the einsum's (K, vocab) dims
+            # merge into one strided-split dim, which DTensor places only by
+            # reading values (a fake tensor has none)
+            logits = torch.stack([hf @ w[:, k] for k in
+                                  range(cfg.num_codebooks)], dim=2)
         elif cfg.tie_embeddings:
             logits = hf @ w.T
         else:
@@ -794,7 +819,10 @@ def ssm_lib_prefill(p, hn, cfg, attn_impl):
     Ch = xbc[..., d_in + G * N:].reshape(B, S, G, N)
     dtf = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    y, h_final = ssm_lib.ssd_chunked(xh, dtf, A, Bh, Ch, chunk=s.chunk_size)
+    y, h_final = ssm_lib.ssd_per_shard(
+        lambda x, dt, A, Bm, Cm: ssm_lib.ssd_chunked(x, dt, A, Bm, Cm,
+                                                     chunk=s.chunk_size),
+        xh, dtf, A, Bh, Ch)
     y = y + xh * p["D"][:, None].to(xh.dtype)
     y = y.reshape(B, S, d_in)
     y = ssm_lib._gated_norm(p["norm"], y, z, cfg.norm_eps)

@@ -30,7 +30,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import local_call
+from repro_torch.distributed.sharding import (local_call, reduce_pending,
+                                              unshard)
 
 from .param import ParamSpec
 
@@ -65,8 +66,15 @@ def ssm_specs(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, ParamSpec]:
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg):
+    """z, x, B, C and dt from the input projection.  Under a mesh the
+    projection is first made whole along its last dim, as slicing a dim
+    split over the model axis would make it implicitly (the pieces' bounds
+    are not the shards'); explicit, its gradient is a plain split, where
+    DTensor's implicit one left a strided split that it places only by
+    reading values (a fake tensor has none)."""
     s = cfg.ssm
     d_in, G, N = cfg.expand_dim, s.n_groups, s.d_state
+    zxbcdt = unshard(zxbcdt, -1)
     z = zxbcdt[..., :d_in]
     x = zxbcdt[..., d_in:2 * d_in]
     Bm = zxbcdt[..., 2 * d_in:2 * d_in + G * N]
@@ -90,7 +98,10 @@ def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
                 eps: float) -> torch.Tensor:
     out_dtype = z.dtype  # z comes straight from the (bf16) projection
     yf = y.float() * F.silu(z.float())
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    # under a mesh y is split over "model" along the mean's dim; reduced
+    # here, the pending sum is not reduce-scattered over the sequence
+    var = reduce_pending(torch.sum(torch.square(yf), dim=-1, keepdim=True)
+                         ) / yf.shape[-1]
     return (yf * torch.rsqrt(var + eps) * scale).to(out_dtype)
 
 
@@ -191,6 +202,18 @@ def ssd_reference(x, dt, A, Bm, Cm, init_state=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
+def ssd_per_shard(fn, x, dt, A, Bm, Cm):
+    """``fn(x, dt, A, Bm, Cm)``, an SSD scan -> (y, final state), on each
+    rank's shards under a mesh: the batch and the heads split, each rank's
+    heads with the B/C groups they read (the scan needs no exchange).  As
+    DTensor ops, the scan's einsums would merge the data-split batch and the
+    model-split heads into one strided-split dim, whose product DTensor
+    places only by reading values (a fake tensor has none)."""
+    return local_call(lambda x, Bm, Cm, dt, A: fn(x, dt, A, Bm, Cm),
+                      x, (Bm, Cm), ((dt, 2), (A, 0)), q_dim=2, group_dim=2,
+                      outs=((0, None), (0, 1)))
+
+
 # ------------------------------------------------------------- layer fwd
 def mamba2_forward(params, u: torch.Tensor, cfg, *, impl: str = "kernel",
                    init_state=None, return_state: bool = False):
@@ -217,13 +240,10 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *, impl: str = "kernel",
             raise ValueError("the ssd kernel takes no initial state; use "
                              "impl='torch'")
         from repro_torch.kernels.ssd_scan import ssd
-        # per shard under a mesh: the batch and the heads split, each rank's
-        # heads with the B/C groups they read (the scan needs no exchange)
-        y, h_final = local_call(
-            lambda x, Bm, Cm, dt, A: ssd(x, dt, A, Bm, Cm,
+        y, h_final = ssd_per_shard(
+            lambda x, dt, A, Bm, Cm: ssd(x, dt, A, Bm, Cm,
                                          chunk=s.chunk_size),
-            x, (Bm, Cm), ((dt, 2), (A, 0)), q_dim=2, group_dim=2,
-            outs=((0, None), (0, 1)))
+            x, dt, A, Bm, Cm)
     elif impl == "torch":
         y, h_final = ssd_chunked(x, dt, A, Bm, Cm, chunk=s.chunk_size,
                                  init_state=init_state)
@@ -260,10 +280,17 @@ def mamba2_decode_step(params, u: torch.Tensor, ssm_state: torch.Tensor,
     Ct = Ct.repeat_interleave(hg, dim=1)
     dtt = F.softplus(dt.float() + params["dt_bias"])[:, 0]
     A = -torch.exp(params["A_log"])
-    decay = torch.exp(dtt * A)                              # (B,nh)
-    new_state = ssm_state * decay[..., None, None] + torch.einsum(
-        "bhn,bhp,bh->bhnp", Bt, xt, dtt.to(xt.dtype)).to(ssm_state.dtype)
-    y = torch.einsum("bhn,bhnp->bhp", Ct, new_state.to(Ct.dtype))
+
+    def recur(xt, state, Bt, Ct, dtt, A):
+        decay = torch.exp(dtt * A)                          # (B,nh)
+        new_state = state * decay[..., None, None] + torch.einsum(
+            "bhn,bhp,bh->bhnp", Bt, xt, dtt.to(xt.dtype)).to(state.dtype)
+        return (torch.einsum("bhn,bhnp->bhp", Ct, new_state.to(Ct.dtype)),
+                new_state)
+    # on each rank's (batch, head) shards under a mesh, as ssd_per_shard
+    y, new_state = local_call(
+        recur, xt, (), ((ssm_state, 1), (Bt, 1), (Ct, 1), (dtt, 1), (A, 0)),
+        q_dim=1, group_dim=1, outs=((0, None), (0, 1)))
     y = y + xt * params["D"][:, None].to(xt.dtype)
     y = y.reshape(-1, 1, d_in)
     y = _gated_norm(params["norm"], y, z, cfg.norm_eps)

@@ -1,0 +1,210 @@
+"""The dry run on fake process groups (``launch/dryrun.py``,
+``launch/steps.py::abstract_state``/``trace_cell``, ``launch/op_analysis.py``):
+each group is rank 0 of torch's "fake" backend in a process of its own
+(``_torch_dryrun_tasks.py``), all started together when the module starts.
+
+Per-device bytes are held against JAX's ``NamedSharding(AbstractMesh,
+spec).shard_shape``; the counter against itself on real tensors; the
+production cells against what they must show.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from jax.sharding import AbstractMesh, NamedSharding, PartitionSpec
+
+from repro.configs import ARCHS as JAX_ARCHS
+from repro.configs import SHAPES as JAX_SHAPES
+from repro.distributed import sharding as jsh
+from repro.models.model import build_model as jax_build_model
+from repro.optim import AdamW as JaxAdamW
+from repro.optim import cosine_schedule as jax_cosine
+
+ROOT = Path(__file__).resolve().parents[1]
+TASKS = Path(__file__).resolve().parent / "_torch_dryrun_tasks.py"
+NAMES = ["bytes_single", "bytes_multi", "abstract", "deepseek",
+         "fake_vs_real", "allreduce", "prefill_mesh"]
+CELL = ["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
+        "--mesh", "single", "--tag", "pytest"]
+TIMEOUT = 600
+
+
+@pytest.fixture(scope="module")
+def results(tmp_path_factory):
+    """Every task's JSON (or its process's error), the tasks run side by
+    side; and the end-to-end cell under ``cell``."""
+    d = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    procs = {name: subprocess.Popen(
+        [sys.executable, str(TASKS), name, str(d / f"{name}.json")],
+        stdout=subprocess.DEVNULL, stderr=open(d / f"{name}.err", "w"),
+        env=env, cwd=ROOT) for name in NAMES}
+    procs["cell"] = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *CELL,
+         "--out", str(d)], stdout=subprocess.DEVNULL,
+        stderr=open(d / "cell.err", "w"), env=env, cwd=ROOT)
+    out = {}
+    try:
+        for name, p in procs.items():
+            p.wait(timeout=TIMEOUT)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p in procs.items():
+        err = (d / f"{name}.err").read_text()[-3000:]
+        if name == "cell":
+            path = d / "granite-moe-1b-a400m__decode_32k__single__pytest.json"
+            out[name] = (p.returncode, path, err)
+        else:
+            out[name] = json.loads((d / f"{name}.json").read_text()) \
+                if p.returncode == 0 else err
+    return out
+
+
+def _get(results, name):
+    got = results[name]
+    assert not isinstance(got, str), got
+    return got
+
+
+# --------------------------------------------------------- per-device bytes
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _shard_bytes(shape, dtype, spec, amesh) -> int:
+    local = NamedSharding(amesh, PartitionSpec(*spec)).shard_shape(
+        tuple(shape))
+    return math.prod(local) * np.dtype(dtype).itemsize
+
+
+def _jax_bytes(arch: str, shape: str, amesh) -> dict:
+    """JAX's per-device bytes of one cell, its rules chosen as
+    ``repro.launch.steps.build_cell`` chooses them."""
+    cfg, sc = JAX_ARCHS[arch], JAX_SHAPES[shape]
+    long_ctx = shape == "long_500k"
+    seq_axis = None
+    if cfg.seq_shard_attn and not long_ctx:
+        seq_axis = "model" if sc.kind == "decode" else "data"
+    rules = jsh.make_rules(sc.kind, long_context=long_ctx,
+                           fsdp=cfg.fsdp_params, seq_shard=seq_axis)
+    model = jax_build_model(cfg)
+
+    def specs_bytes(specs):
+        return sum(_shard_bytes(s.shape, s.dtype,
+                                jsh.spec_for(s.shape, s.axes, amesh, rules),
+                                amesh) for s in _leaves(specs))
+    psp = model.param_specs()
+    out = {"params": specs_bytes(psp)}
+    if sc.kind == "train":
+        opt = JaxAdamW(jax_cosine(3e-4, 100, 10_000),
+                       moment_dtype=cfg.adam_moment_dtype)
+        out["opt"] = specs_bytes(opt.state_specs(psp))
+    if sc.kind in ("train", "prefill"):
+        specs, shardings = jsh.batch_specs(cfg, sc, amesh, rules)
+        out["inputs"] = sum(
+            math.prod(shardings[k].shard_shape(v.shape)) * v.dtype.itemsize
+            for k, v in specs.items())
+    else:
+        B = sc.global_batch
+        out["cache"] = specs_bytes(model.cache_specs(B, sc.seq_len))
+        tok_shape = (B, cfg.num_codebooks) if cfg.num_codebooks else (B,)
+        tok_axes = ("batch", None) if cfg.num_codebooks else ("batch",)
+        # the port's pos is a host int; JAX's, a 4-byte scalar
+        out["inputs"] = _shard_bytes(
+            tok_shape, np.int32, jsh.spec_for(tok_shape, tok_axes, amesh,
+                                              rules), amesh)
+    return out
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_per_device_bytes_equal_jax_for_every_cell(results, multi):
+    got = _get(results, "bytes_multi" if multi else "bytes_single")
+    shape, names = ((2, 16, 16), ("pod", "data", "model")) if multi else \
+        ((16, 16), ("data", "model"))
+    amesh = AbstractMesh(shape, names)
+    assert len(got) == 33      # every runnable cell
+    for cell, port in got.items():
+        arch, shape_name = cell.split("/")
+        assert port == _jax_bytes(arch, shape_name, amesh), cell
+
+
+# ------------------------------------------------------------ abstract state
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-v3-671b",
+                                  "zamba2-2.7b"])
+def test_abstract_state_matches_init_state_and_place_tree(results, arch):
+    got = _get(results, "abstract")[arch]
+    assert got["fake"] == got["real"]
+    assert len(got["fake"]) > 10
+    # some leaf is split on each mesh dim, so this is no world of one
+    placements = [p for _, _, pl, _ in got["fake"].values() for p in pl]
+    assert "S(0)" in placements or "S(1)" in placements
+
+
+# ------------------------------------------------------- what the step shows
+def test_smoke_deepseek_train_step_traces_on_fake_tensors(results):
+    """MLA's attention on a (2, 2) mesh under ``FakeTensorMode``: DTensor
+    could not place the einsum's merged batch and head dims without reading
+    values, which a fake tensor has not."""
+    got = _get(results, "deepseek")
+    assert got["metrics"] == ["aux", "ce", "grad_norm", "loss", "mtp"]
+    assert got["state"]["params/moe_blocks/attn/w_uk"] == [3, 32, 2, 32]
+
+
+@pytest.mark.parametrize("where", ["none", "mesh"])
+def test_counts_are_equal_on_fake_and_real_tensors(results, where):
+    got = _get(results, "fake_vs_real")[where]
+    assert got["fake"] == got["real"]
+    assert got["fake"]["flops"] > 0 and got["fake"]["peak_bytes"] > 0
+    if where == "mesh":
+        assert got["fake"]["collective_count"]["reduce-scatter"] > 0
+
+
+def test_collectives_detected_on_sharded_matmul(results):
+    """The port of ``test_hlo_analysis``'s check: a contraction dim split
+    over 8 ranks needs a reduction."""
+    got = _get(results, "allreduce")
+    assert got["collective_count"] == {"all-reduce": 1}
+    assert got["collective_bytes"] == 1024 * 256 * 4
+    assert got["flops"] == 2 * 1024 * 32 * 256        # one rank's share
+    assert got["collective_bytes_across_nodes"] == 0   # 8 ranks, one node
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-1.3b"])
+def test_prefill_on_a_mesh_places_its_cache(results, arch):
+    """A prefill on a mesh copied each layer's DTensor K/V (or SSM state)
+    into a plain cache tensor, which DTensor refuses; the cache is now
+    placed by the rules, each rank making its shard."""
+    got = _get(results, "prefill_mesh")[arch]
+    assert got["logits"] == [4, 512]
+    assert got["cache"]
+    for shape, placements in got["cache"].values():
+        assert len(placements) == 2
+    if arch == "gemma-2b":
+        assert got["cache"]["layers/k"][1] == ["S(1)", "R"]
+
+
+def test_dryrun_cell_end_to_end(results):
+    """One full-width cell through the CLI: granite-moe-1b-a400m x
+    decode_32k on 256 fake ranks, JSON out."""
+    rc, path, err = results["cell"]
+    assert rc == 0, err
+    d = json.loads(path.read_text())
+    assert d["status"] == "OK"
+    assert d["chips"] == 256
+    assert d["roofline"]["flops_per_device"] > 0
+    assert d["memory_analysis"]["alias_bytes"] > 0   # the cache, in place
+    assert d["kernel_calls"] == {"decode_attention": 24}
