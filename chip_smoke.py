@@ -1407,7 +1407,7 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     _check_counts(counts, train_launches(cfg, job.steps), tag)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = trainer.peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state = out["state"]
     if ckpt.saved_steps != [job.steps]:
         raise AssertionError(f"checkpoints {ckpt.saved_steps}")
@@ -1581,11 +1581,13 @@ def dist(card: str, train_ref=None, served=None, restored=None):
     sjob = ServeJob(arch="gemma-2b", smoke=False, batch=4, prompt_len=32,
                     max_new_tokens=32)
     if restored is None:
+        torch.cuda.reset_peak_memory_stats()
         ref = Trainer(job, ckpt=CheckpointManager(MemoryProvider()))
         out = ref.run(restore=False)
         train_ref = {"losses": [h["loss"] for h in out["history"]],
                      "step_s": statistics.median(h["sec"] for h in
-                                                 out["history"][1:])}
+                                                 out["history"][1:]),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         restored = dist_restore(ref.ckpt, out["state"])
         del ref, out
     if served is None:
@@ -1598,11 +1600,13 @@ def dist(card: str, train_ref=None, served=None, restored=None):
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()     # the references above not counted
     with _world_of_one():
+        torch.cuda.reset_peak_memory_stats()
         trainer = Trainer(job, ckpt=_Unwritten(MemoryProvider(), keep=1))
         mesh = trainer.mesh
         _reset_counts()
         out = trainer.run(restore=False)
         counts = _counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         _check_counts(counts, train_launches(trainer.cfg, job.steps), "dist")
         losses = [h["loss"] for h in out["history"]]
         rel = [abs(a - b) / abs(b) for a, b in zip(losses, train_ref["losses"])]
@@ -1661,6 +1665,11 @@ def dist(card: str, train_ref=None, served=None, restored=None):
         tok_s = srv.throughput()
         del srv
     torch.cuda.empty_cache()
+    # the meshed step's peak (the vocab-parallel loss on DTensors) against
+    # the meshless one's, each over Trainer.run
+    _say("dist_peak", card=card, mesh=[1, 1], peak_memory_gb=peak_gb,
+         train_peak_memory_gb=train_ref["peak_gb"],
+         ratio=peak_gb / train_ref["peak_gb"])
     _say("dist", card=card, mesh=[1, 1], launches={
              "flash_attention": counts["flash_attention"],
              "decode_attention": serve_counts["decode_attention"]},
@@ -2756,7 +2765,8 @@ def main() -> None:
     flash_launches = counts["flash_attention"] + prefill_flash
     train_ref = {"losses": [h["loss"] for h in trainer.history],
                  "step_s": statistics.median(h["sec"] for h in
-                                             trainer.history[1:])}
+                                             trainer.history[1:]),
+                 "peak_gb": trainer.peak_gb}
     restored = dist_restore(trainer.ckpt, state)
     resume(card)
     trace_train(trainer, state, batch, card)

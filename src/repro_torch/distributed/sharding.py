@@ -192,9 +192,19 @@ def sharded(make, shape: Tuple[int, ...], dtype: torch.dtype, mesh,
         local_shape = compute_local_shape_and_global_offset(
             shape, mesh, placements)[0]
     local = make(local_shape, dtype=dtype, device=device)
-    stride = torch.empty(shape, device="meta").stride()
     return DTensor.from_local(local, mesh, placements, run_check=False,
-                              shape=torch.Size(shape), stride=stride)
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, as torch gives them
+    (a dimension of size 0 counts as 1), with no tensor made."""
+    stride, step = [], 1
+    for n in reversed(shape):
+        stride.append(step)
+        step *= max(n, 1)
+    return tuple(reversed(stride))
 
 
 def is_dtensor(x) -> bool:
@@ -245,6 +255,56 @@ def reduce_pending(x: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor import Replicate
     return distribute(x, x.device_mesh, [Replicate() if p.is_partial() else p
                                          for p in x.placements])
+
+
+def reduce_over(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """A plain tensor reduced by ``op`` ("sum", "max") over the mesh dims
+    ``dims`` (an all-reduce over each); no autograd."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        x = funcol.all_reduce(x, op, (mesh, i))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+def gather_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Each rank's ``x`` stacked on a new leading dim over the mesh dims
+    ``dims``, in rank order (the first mesh dim major, as DTensor splits a
+    dimension over several); no autograd."""
+    from torch.distributed import _functional_collectives as funcol
+    # all_gather_tensor's new name, where torch has it
+    gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
+    x = x[None]
+    for i in reversed(tuple(dims)):
+        x = gather(x, 0, (mesh, i))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    """The all-reduce of :func:`sum_over`, whose backward hands each rank
+    its own gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return reduce_over(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Each rank's plain ``x`` summed over the mesh dims ``dims``; its
+    backward hands each rank its own gradient, unsent.
+
+    Exact where every rank is handed the whole gradient of the sum, or
+    where each rank's share of the sum and its gradient lie in rows that no
+    other rank writes or reads (the MoE buffer: a token's rows come from,
+    and send their gradient to, the rank that holds the token)."""
+    return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -349,24 +409,6 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
         pl, _ = target(bd, q_dim if hd is None else hd)
         wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
     return wrapped[0] if single else tuple(wrapped)
-
-
-def whole_call(fn, *args):
-    """``fn`` on operands made whole on every rank, its outputs (a tensor or
-    a tuple) wrapped as replicated DTensors: for the ops DTensor has no rule
-    for (``searchsorted``, ``index_copy``, an ``index_select`` along a split
-    dim).  Every rank then does the same work, so the gradients of the whole
-    operands are whole too.  With no DTensor among ``args``, ``fn`` runs on
-    them as they are."""
-    if not any(is_dtensor(a) for a in args):
-        return fn(*args)
-    from torch.distributed.tensor import DTensor, Replicate
-    mesh = next(a for a in args if is_dtensor(a)).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    out = fn(*(distribute(a, mesh, rep).to_local(grad_placements=rep)
-               if is_dtensor(a) else a for a in args))
-    wrap = lambda o: DTensor.from_local(o, mesh, rep, run_check=False)
-    return tuple(map(wrap, out)) if isinstance(out, tuple) else wrap(out)
 
 
 def place_tree(tree, placements, mesh):

@@ -24,7 +24,12 @@ be multiplied in, as ``hlo_analysis`` must for a scan.
   ``collective_bytes_across_nodes``.
 * ``peak_bytes`` - the most bytes of storage alive at once: the tensors held
   when the counter starts (``hold``), then every storage an op returns,
-  until it is freed.
+  until it is freed; a tensor on the "meta" device holds none, and the
+  result of a collective's wait (a new storage on fake tensors, the same
+  one on real ones) is the collective's.
+* ``largest_bytes`` - the largest of those storages: a tensor that no
+  rank should hold whole (the global logits, a global token table) shows
+  here when the peak hides it.
 * ``kernel_calls`` - the kernel wrappers' calls, by name.
 
 The fake tensors that DTensor makes to propagate a sharding (global shapes,
@@ -33,6 +38,7 @@ no part of any rank's work) are not counted.
 
 from __future__ import annotations
 
+import itertools
 import weakref
 from collections import Counter, defaultdict
 from dataclasses import asdict, dataclass, field
@@ -73,6 +79,7 @@ class Costs:
     collective_count: Dict[str, int] = field(default_factory=dict)
     collective_bytes_across_nodes: float = 0.0
     peak_bytes: int = 0
+    largest_bytes: int = 0
     kernel_calls: Dict[str, int] = field(default_factory=dict)
 
     def to_json(self) -> dict:
@@ -100,7 +107,9 @@ class OpCounter(TorchDispatchMode):
         super().__init__()
         self.costs = Costs()
         self.node_size = node_size
-        self._live: Dict[int, int] = {}      # storage key -> bytes
+        self._entry: Dict[int, int] = {}     # live storage key -> entry
+        self._live: Dict[int, list] = {}     # entry -> [bytes, storages]
+        self._entries = itertools.count()
         self._live_bytes = 0
         self._depth = 0                      # entries, as in a decomposition
         self._quiet = 0
@@ -118,19 +127,38 @@ class OpCounter(TorchDispatchMode):
         for t in tensors:
             self._track(t._local_tensor if isinstance(t, DTensor) else t)
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, same_as=None) -> None:
+        """Count ``t``'s storage as alive until it is freed; with
+        ``same_as``, a tensor whose bytes ``t``'s storage stands for until
+        the last of them is freed."""
+        if t.device.type == "meta":     # shapes only: no device holds them
+            return
         st = t.untyped_storage()
         key = st._cdata
-        if key in self._live:
+        if key in self._entry:
             return
-        n = st.nbytes()
-        self._live[key] = n
-        self._live_bytes += n
-        self.costs.peak_bytes = max(self.costs.peak_bytes, self._live_bytes)
-        weakref.finalize(st, self._free, key)
+        entry = None if same_as is None else \
+            self._entry.get(same_as.untyped_storage()._cdata)
+        if entry is None:
+            entry = next(self._entries)
+            n = st.nbytes()
+            self._live[entry] = [n, 0]
+            self._live_bytes += n
+            self.costs.peak_bytes = max(self.costs.peak_bytes,
+                                        self._live_bytes)
+            self.costs.largest_bytes = max(self.costs.largest_bytes, n)
+        self._live[entry][1] += 1
+        self._entry[key] = entry
+        weakref.finalize(st, self._free, key, entry)
 
-    def _free(self, key: int) -> None:
-        self._live_bytes -= self._live.pop(key, 0)
+    def _free(self, key: int, entry: int) -> None:
+        if self._entry.get(key) == entry:
+            del self._entry[key]
+        held = self._live[entry]
+        held[1] -= 1
+        if held[1] == 0:
+            self._live_bytes -= held[0]
+            del self._live[entry]
 
     # ------------------------------------------------------------- kernels
     def kernel_call(self, name: str, flops: float, nbytes: float,
@@ -188,11 +216,15 @@ class OpCounter(TorchDispatchMode):
         if self._quiet:
             return out
         outs = [o for o in tree_flatten(out)[0] if isinstance(o, torch.Tensor)]
+        ns, name = func.namespace, func._opname
+        # a collective's wait and autograd wrapper hand back its result,
+        # which a fake tensor cannot alias
+        same_as = args[0] if ns == "_c10d_functional" and \
+            name in NOT_COLLECTIVES else None
         for o in outs:
-            self._track(o)
+            self._track(o, same_as)
         if func in FREE or func.is_view:
             return out
-        ns, name = func.namespace, func._opname
         if ns == "_c10d_functional":
             if name not in NOT_COLLECTIVES:
                 if name not in COLLECTIVES:

@@ -290,8 +290,9 @@ def trace_cell(arch_cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, **kw):
     ``alias_bytes`` (outputs that are an input's storage: the train state
     and the decode cache, updated in place), ``temp_bytes`` (the peak less
     the arguments and the outputs that alias none: the rest that is alive
-    at the peak), and beside them ``peak_bytes`` and ``state_bytes`` (the
-    first argument: the train state, or the parameters).
+    at the peak), and beside them ``peak_bytes``, ``state_bytes`` (the
+    first argument: the train state, or the parameters) and
+    ``largest_bytes`` (the largest storage the step held).
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -315,5 +316,6 @@ def trace_cell(arch_cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, **kw):
     memory = {"argument_bytes": argument, "output_bytes": output,
               "temp_bytes": peak - argument - (output - alias),
               "alias_bytes": alias, "peak_bytes": peak,
-              "state_bytes": nbytes(state)}
+              "state_bytes": nbytes(state),
+              "largest_bytes": counter.costs.largest_bytes}
     return counter.costs, memory, model, rules

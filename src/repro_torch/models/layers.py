@@ -8,13 +8,14 @@ fp32 rotary angles, tanh-approximated GELU, fp32 cross entropy).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import replicate, unshard
+from repro_torch.distributed.sharding import distribute, is_dtensor, reduce_over
 
 from .param import ParamSpec
 
@@ -88,20 +89,102 @@ def softmax_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean CE in fp32: logsumexp minus the gold logit, masked.
 
-    Vocab-sharded DTensor logits are gathered over the vocab first: DTensor
-    has no rule for a gather along a sharded dim (GSPMD inserts the
-    cross-shard max/sum reductions instead).  The batch sums are reduced
-    before the division, so the loss is whole on every rank.
+    On DTensors the loss is vocab-parallel (:func:`_vocab_parallel`): each
+    rank works on its own shard of the logits, split over the batch and,
+    where the rules split the vocabulary, over it, and the shards meet only
+    in all-reduces of per-token and scalar values, as GSPMD inserts the
+    cross-shard max/sum reductions.  No rank holds the whole batch's logits
+    or a whole vocabulary, forward or backward.  The loss is whole on every
+    rank.
     """
-    logits = unshard(logits.float(), -1)
+    if is_dtensor(logits) or is_dtensor(targets):
+        return _vocab_parallel(logits, targets, mask)
+    logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         m = mask.float()
-        return replicate(torch.sum(nll * m)) / torch.clamp(
-            replicate(torch.sum(m)), min=1.0)
-    return replicate(torch.mean(nll))
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """The CE of one rank's shard ``x`` (..., V_local) of fp32 logits, whose
+    vocabulary starts at ``v0``: the max, the sum of exponentials and the
+    gold logit all-reduced over the mesh dims ``vocab_dims`` that split the
+    vocabulary, the masked sums over ``batch_dims``.  The backward,
+    (softmax - onehot) * mask / count, is made on the shard from the saved
+    logsumexp, with no exchange."""
+
+    @staticmethod
+    def forward(ctx, x, targets, mask, v0, count, mesh, vocab_dims,
+                batch_dims):
+        mx = reduce_over(torch.amax(x, dim=-1), "max", mesh, vocab_dims)
+        mx = torch.where(torch.isfinite(mx), mx, 0.0)
+        sumexp = torch.sub(x, mx[..., None]).exp_().sum(dim=-1)
+        lse = torch.log(reduce_over(sumexp, "sum", mesh, vocab_dims)) + mx
+        local = targets.long() - v0
+        held = (local >= 0) & (local < x.shape[-1])
+        local = torch.where(held, local, 0)
+        gold = torch.gather(x, -1, local[..., None])[..., 0]
+        gold = reduce_over(torch.where(held, gold, 0.0), "sum", mesh,
+                           vocab_dims)
+        nll = lse - gold
+        if mask is None:
+            total = torch.sum(nll)
+            m = None
+        else:
+            m = mask.float()
+            total = torch.sum(nll * m)
+            count = torch.sum(m)
+        total = reduce_over(total, "sum", mesh, batch_dims)
+        if m is not None:
+            count = torch.clamp(reduce_over(count, "sum", mesh, batch_dims),
+                                min=1.0)
+        ctx.save_for_backward(x, lse, local, held, m, count)
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse, local, held, m, count = ctx.saved_tensors
+        grad = torch.sub(x, lse[..., None]).exp_()
+        grad.scatter_add_(-1, local[..., None], -held.float()[..., None])
+        scale = g / count
+        grad.mul_(scale if m is None else (m * scale)[..., None])
+        return grad, None, None, None, None, None, None, None
+
+
+def _vocab_parallel(logits, targets, mask):
+    """:func:`softmax_cross_entropy` on DTensors: each mesh dim splits the
+    logits over a batch dim or over the vocabulary, or holds them whole (a
+    pending sum is reduced first); the targets and mask are split as the
+    logits' batch dims are."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh = (logits if is_dtensor(logits) else targets).device_mesh
+    n = logits.ndim
+    given = logits.placements if is_dtensor(logits) else \
+        [Replicate()] * mesh.ndim
+    pl = [Shard(p.dim % n) if p.is_shard() else Replicate() for p in given]
+    vocab_dims = [i for i, p in enumerate(pl) if p == Shard(n - 1)]
+    batch_dims = [i for i, p in enumerate(pl) if p.is_shard() and
+                  p.dim < n - 1]
+    tpl = [p if i in batch_dims else Replicate() for i, p in enumerate(pl)]
+    x = distribute(logits.float(), mesh, pl).to_local(grad_placements=pl)
+    t = distribute(targets, mesh, tpl).to_local()
+    m = None if mask is None else distribute(mask, mesh, tpl).to_local()
+    with unset_fake_temporarily():
+        v0 = compute_local_shape_and_global_offset(
+            logits.shape, mesh, pl)[1][-1]
+    count = torch.tensor(float(math.prod(logits.shape[:-1])),
+                         device=x.device)
+    loss = _VocabParallelCE.apply(x, t, m, v0, count, mesh, vocab_dims,
+                                  batch_dims)
+    return DTensor.from_local(loss, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------- remat

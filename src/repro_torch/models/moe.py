@@ -36,7 +36,9 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import whole_call
+from repro_torch.distributed.sharding import (distribute, gather_over,
+                                              is_dtensor, reduce_over,
+                                              sum_over)
 
 from .param import ParamSpec
 
@@ -65,11 +67,11 @@ def moe_specs(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _route(params, x2d: torch.Tensor, cfg
+def _top_k(router: torch.Tensor, x2d: torch.Tensor, cfg
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """-> (top-k expert ids (T,k), fp32 weights (T,k), aux loss)."""
+    """-> (top-k expert ids (T,k), fp32 weights (T,k), fp32 probs (T,E))."""
     m = cfg.moe
-    logits = x2d.float() @ params["router"].float()
+    logits = x2d.float() @ router.float()
     if m.router == "sigmoid":                     # DeepSeek-V3
         scores = torch.sigmoid(logits)
         w, idx = torch.topk(scores, m.top_k, dim=-1)
@@ -78,8 +80,15 @@ def _route(params, x2d: torch.Tensor, cfg
         probs = torch.softmax(logits, dim=-1)
         w, idx = torch.topk(probs, m.top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    return idx, w, probs
+
+
+def _route(params, x2d: torch.Tensor, cfg
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """-> (top-k expert ids (T,k), fp32 weights (T,k), aux loss)."""
+    idx, w, probs = _top_k(params["router"], x2d, cfg)
     # Switch-style load balance: E * sum_e mean_tokens(frac_e) * mean(prob_e)
-    E = m.num_experts
+    E = cfg.moe.num_experts
     experts = torch.arange(E, device=x2d.device)
     frac = (idx[:, :1] == experts).float().mean(dim=0)
     aux = E * torch.sum(frac * probs.mean(dim=0))
@@ -112,65 +121,157 @@ def dispatch(idx: torch.Tensor, cap: int, num_experts: int):
     return order, se, pos, pos < cap
 
 
+def _experts(buf: torch.Tensor, wi, wg, wo) -> torch.Tensor:
+    """The expert FFN on a (E, C, d) buffer: one batched product a matrix."""
+    h = torch.bmm(buf, wi)
+    g = torch.bmm(buf, wg)
+    return torch.bmm(F.silu(g) * h, wo)
+
+
+def _combine(rows, idx, order, keep, sw, dtype):
+    """Each token's k expert rows (in the sort's order), weighted, added in
+    ascending expert id."""
+    T, k = idx.shape
+    y = rows * (keep.to(dtype) * sw.to(dtype))[:, None]
+    # each token's k rows in ascending expert id: the sorted position of
+    # assignment t*k + j is inv[t*k + j], and argsort(idx) orders j by id
+    inv = torch.empty_like(order).index_copy_(
+        0, order, torch.arange(T * k, device=order.device))
+    by_id = torch.argsort(idx, dim=-1) + \
+        torch.arange(0, T * k, k, device=order.device)[:, None]
+    y = y.index_select(0, inv.index_select(0, by_id.reshape(T * k)))
+    y = y.view(T, k, -1)
+    out = y[:, 0]
+    for j in range(1, k):
+        out = out + y[:, j]
+    return out
+
+
 def moe_apply(params, x: torch.Tensor, cfg,
               shard=lambda x, axes=None: x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (out (B, S, d), aux loss scalar).
 
-    ``shard`` pins the intermediates at the JAX function's sites: the tokens
-    on the batch axis, the (E, C, d) buffers and the expert FFN on the
-    expert axis.  Under a mesh the dispatch plan and the row gathers around
-    the buffer (``searchsorted``, ``index_copy``, ``index_select``, which
-    DTensor has no rules for) run on the whole token table on every rank
-    (``whole_call``), where JAX shards the expert-sorted table (``se``,
-    ``st``, ``sw``, ``pos``, the gathered rows and ``y``) on the expert
-    axis: the same values, and each rank then keeps its experts' rows.
+    ``shard`` pins the tokens on the batch axis, at the JAX function's site.
+    On DTensors the dispatch runs on each rank's shards
+    (:func:`_on_shards`): a rank holds its own tokens' (T/data * k, d) rows
+    and its experts' (E/model, C, d) buffer, JAX's ("expert", None, None)
+    shard, and never the whole token table or buffer.
     """
     m = cfg.moe
     B, S, d = x.shape
     T = B * S
     k, E = m.top_k, m.num_experts
     x2d = shard(x.reshape(T, d), ("batch", None))
-    idx, w, aux = _route(params, x2d, cfg)
     cap = capacity(T, cfg)
-
-    def into_buffer(x2d, idx, w):
+    if is_dtensor(x2d):
+        out, aux = _on_shards(params, x2d, cap, cfg)
+        out = shard(out, ("batch", None))
+    else:
+        idx, w, aux = _route(params, x2d, cfg)
         order, se, pos, keep = dispatch(idx, cap, E)
-        st = order // k                            # token of each assignment
         sw = w.reshape(T * k).index_select(0, order)
         # kept assignments to their slot, dropped ones to the spare row E*cap
         slot = torch.where(keep, se * cap + pos, E * cap)
         buf = x2d.new_zeros((E * cap + 1, d)).index_copy(
-            0, slot, x2d.index_select(0, st))
-        return buf[:E * cap].view(E, cap, d), order, se, pos, keep, sw
-
-    def combine(out_buf, idx, order, se, pos, keep, sw):
-        out_buf = out_buf.reshape(E * cap, d)
-        pos_c = torch.clamp(pos, max=cap - 1)
-        y = out_buf.index_select(0, se * cap + pos_c) * \
-            (keep.to(x.dtype) * sw.to(x.dtype))[:, None]
-        # each token's k rows in ascending expert id: the sorted position of
-        # assignment t*k + j is inv[t*k + j], and argsort(idx) orders j by id
-        inv = torch.empty_like(order).index_copy_(
-            0, order, torch.arange(T * k, device=order.device))
-        by_id = torch.argsort(idx, dim=-1) + \
-            torch.arange(0, T * k, k, device=order.device)[:, None]
-        y = y.index_select(0, inv.index_select(0, by_id.reshape(T * k)))
-        y = y.view(T, k, d)
-        out = y[:, 0]
-        for j in range(1, k):
-            out = out + y[:, j]
-        return out
-
-    buf, *plan = whole_call(into_buffer, x2d, idx, w)
-    buf = shard(buf, ("expert", None, None))
-    h = torch.bmm(buf, params["wi"])
-    g = torch.bmm(buf, params["wg"])
-    h = shard(F.silu(g) * h, ("expert", None, None))
-    out_buf = shard(torch.bmm(h, params["wo"]), ("expert", None, None))
-    out = shard(whole_call(combine, out_buf, idx, *plan), ("batch", None))
+            0, slot, x2d.index_select(0, order // k))
+        out_buf = _experts(buf[:E * cap].view(E, cap, d), params["wi"],
+                           params["wg"], params["wo"]).reshape(E * cap, d)
+        rows = out_buf.index_select(
+            0, se * cap + torch.clamp(pos, max=cap - 1))
+        out = _combine(rows, idx, order, keep, sw, x.dtype)
 
     if m.num_shared:
         sh = x2d @ params["shared_wi"]
         sg = x2d @ params["shared_wg"]
         out = out + (F.silu(sg) * sh) @ params["shared_wo"]
     return out.reshape(B, S, d), aux
+
+
+def _on_shards(params, x2d, cap: int, cfg
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routing, dispatch, expert FFN and combine of DTensor tokens
+    ``x2d`` (T, d), each rank on its shards -> (the (T, d) DTensor output,
+    the aux loss, whole on every rank).
+
+    The mesh dims that split the experts' weights on their expert dim hold
+    the experts; those that split the tokens (and not the experts) hold the
+    batch, in data order.  Each rank routes its own tokens (the aux loss's
+    token means are sums over the batch dims) and sorts its assignments
+    stably by expert; the per-expert counts, all-gathered over the batch
+    dims (E integers a rank), give by an exclusive prefix over the ranks
+    before it each assignment's place in its expert's global queue: JAX's
+    ``argsort`` order over all T*k assignments, and so the same drops.
+    Each rank writes its tokens' rows for its own experts at their global
+    slots of a zero (E/model, C, d) buffer, summed over the batch dims; the
+    expert products run on that shard.  Each rank then takes its tokens'
+    rows from its experts' output; a sum over the expert dims brings each
+    token all its k rows (one rank holds each, the others add zeros), and
+    they are weighted and added in ascending expert id, as with no mesh.
+    Nothing is read back to the host.
+    """
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    m = cfg.moe
+    k, E = m.top_k, m.num_experts
+    T, d = x2d.shape
+    mesh = x2d.device_mesh
+    dims = range(mesh.ndim)
+    wi = params["wi"]
+    held = wi.placements if is_dtensor(wi) else [Replicate()] * mesh.ndim
+    experts = [i for i in dims if held[i] == Shard(0)]
+    batch = [i for i in dims if x2d.placements[i] == Shard(0)
+             and i not in experts]
+    rep = [Replicate()] * mesh.ndim
+    tok = [Shard(0) if i in batch else Replicate() for i in dims]
+    ex = [Shard(0) if i in experts else Replicate() for i in dims]
+    # the gradient of a weight comes in part from each rank's tokens, and
+    # that of a token's dispatched row in part from each rank of experts
+    part = lambda pl, over: [Partial() if i in over else p
+                             for i, p in enumerate(pl)]
+    x2d = distribute(x2d, mesh, tok)
+    x_route = x2d.to_local(grad_placements=tok)
+    x_rows = x2d.to_local(grad_placements=part(tok, experts))
+    router = distribute(params["router"], mesh, rep).to_local(
+        grad_placements=part(rep, batch))
+    wi, wg, wo = (distribute(params[n], mesh, ex).to_local(
+        grad_placements=part(ex, batch)) for n in ("wi", "wg", "wo"))
+    E_loc = wi.shape[0]
+    with unset_fake_temporarily():
+        e0 = compute_local_shape_and_global_offset(
+            params["wi"].shape, mesh, ex)[1][0]
+
+    idx, w, probs = _top_k(router, x_route, cfg)
+    ids = torch.arange(E, device=idx.device)
+    frac = reduce_over((idx[:, :1] == ids).float().sum(dim=0), "sum", mesh,
+                       batch)
+    aux = E * torch.sum((frac / T) * (sum_over(probs.sum(dim=0), mesh,
+                                               batch) / T))
+
+    T_loc = idx.shape[0]
+    order, se, pos, keep = dispatch(idx, cap, E)
+    if batch:
+        counts = torch.searchsorted(se, ids, right=True) - \
+            torch.searchsorted(se, ids)
+        rank = 0                    # this rank's place in the data order
+        for i in batch:
+            rank = rank * mesh.shape[i] + mesh.get_coordinate()[i]
+        before = gather_over(counts, mesh, batch)[:rank].sum(dim=0)
+        pos = pos + before.index_select(0, se)
+        keep = pos < cap
+    sw = w.reshape(T_loc * k).index_select(0, order)
+    mine = keep & (se >= e0) & (se < e0 + E_loc)
+    # this rank's experts' kept assignments to their slot, the rest to the
+    # spare row E_loc*cap
+    slot = torch.where(mine, (se - e0) * cap + pos, E_loc * cap)
+    buf = x_rows.new_zeros((E_loc * cap + 1, d)).index_copy(
+        0, slot, x_rows.index_select(0, order // k))
+    buf = sum_over(buf[:E_loc * cap], mesh, batch).view(E_loc, cap, d)
+    out_buf = _experts(buf, wi, wg, wo).reshape(E_loc * cap, d)
+    rows = out_buf.index_select(0, torch.where(mine, slot, 0))
+    rows = sum_over(torch.where(mine[:, None], rows, 0), mesh, experts)
+    out = _combine(rows, idx, order, keep, sw, x2d.dtype)
+    return (DTensor.from_local(out, mesh, tok, run_check=False,
+                               shape=x2d.shape, stride=x2d.stride()),
+            DTensor.from_local(aux, mesh, rep, run_check=False))

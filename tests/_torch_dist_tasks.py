@@ -210,8 +210,111 @@ def task_serve2(rank, out, store_dir):
     out["serve"] = srv.generate(prompts())
 
 
+# ------------------------------------------------- each rank's share
+SHARE_MESHES = {"ce": ((2, 2), (4, 1), (1, 4)), "moe": ((2, 2), (4, 1))}
+# deepseek-v3's MoE options on granite's smoke config, as test_torch_moe.py
+MOE_VARIANTS = {"granite": {},
+                "sigmoid_shared": dict(router="sigmoid", num_shared=1)}
+
+
+def ce_cases() -> dict:
+    """name -> (logits, targets, mask or None, the logits' logical axes):
+    fp32 logits over a vocabulary of 64, masked and unmasked, and a
+    codebook axis as musicgen's."""
+    rng = np.random.default_rng(11)
+    V = 64
+    logits = (3 * rng.standard_normal((4, 6, V))).astype(np.float32)
+    targets = rng.integers(0, V, (4, 6)).astype(np.int64)
+    mask = (rng.uniform(size=(4, 6)) < 0.7).astype(np.float32)
+    logits4 = (3 * rng.standard_normal((4, 6, 2, V))).astype(np.float32)
+    targets4 = rng.integers(0, V, (4, 6, 2)).astype(np.int64)
+    mask4 = np.ascontiguousarray(np.broadcast_to(mask[..., None], (4, 6, 2)))
+    return {"masked": (logits, targets, mask, ("batch", None, "vocab")),
+            "mean": (logits, targets, None, ("batch", None, "vocab")),
+            "codebooks": (logits4, targets4, mask4,
+                          ("batch", None, None, "vocab"))}
+
+
+def moe_config(variant: str):
+    """granite's smoke MoE at capacity factor 1.0: 8 experts, top 2."""
+    import dataclasses
+    cfg = reduce_for_smoke(get_arch("granite-moe-1b-a400m"))
+    return cfg.with_(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.0, **MOE_VARIANTS[variant]))
+
+
+def moe_inputs(cfg) -> tuple:
+    """(numpy params of one MoE layer, x (4, 16, d), the output's cotangent
+    g): a router biased towards experts 0 and 1 (x's first feature is 2 on
+    every token), so that their queues overflow the capacity."""
+    from repro_torch.models.moe import moe_specs
+    rng = np.random.default_rng(12)
+    params = {}
+    for path, s in named_leaves(moe_specs(cfg)):
+        params[path] = (rng.standard_normal(s.shape)
+                        / np.sqrt(s.shape[-2])).astype(np.float32)
+    params["router"][0, :2] += 1.5
+    x = rng.standard_normal((4, 16, cfg.d_model)).astype(np.float32)
+    x[..., 0] = 2.0
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    return params, x, g
+
+
+def task_share(rank, out, store_dir):
+    """The vocab-parallel loss (value and gradient) and ``moe_apply`` on
+    expert shards (output, aux loss, gradients), on each of
+    ``SHARE_MESHES``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import make_shard_fn
+    from repro_torch.models.layers import softmax_cross_entropy
+    from repro_torch.models.moe import moe_apply, moe_specs
+    full = lambda t: t.full_tensor().detach().numpy()
+    meshes = {shape: init_device_mesh("cpu", shape,
+                                      mesh_dim_names=("data", "model"))
+              for shape in set(SHARE_MESHES["ce"] + SHARE_MESHES["moe"])}
+    for shape in SHARE_MESHES["ce"]:
+        shard = make_shard_fn(meshes[shape], make_rules("train"))
+        for name, (logits, targets, mask, axes) in ce_cases().items():
+            lt = shard(torch.from_numpy(logits), axes).requires_grad_()
+            tt = shard(torch.from_numpy(targets), axes[:-1])
+            mt = None if mask is None else \
+                shard(torch.from_numpy(mask), axes[:-1])
+            with implicit_replication():
+                loss = softmax_cross_entropy(lt, tt, mt)
+            loss.backward()
+            out["ce", shape, name] = {
+                "loss": full(loss), "grad": full(lt.grad),
+                "local": tuple(lt.to_local().shape)}
+    for variant in MOE_VARIANTS:
+        cfg = moe_config(variant)
+        params, x, g = moe_inputs(cfg)
+        for shape in SHARE_MESHES["moe"]:
+            mesh = meshes[shape]
+            # a layer's weights as it computes with them: split over the
+            # model axis, whole over the fsdp axes (``Model._whole``)
+            rules = make_rules("train", fsdp=False)
+            pl = dict(named_leaves(sharding_for_specs(moe_specs(cfg), mesh,
+                                                      rules)))
+            tp = {k: distribute(torch.from_numpy(v), mesh, pl[k])
+                  .requires_grad_() for k, v in params.items()}
+            shard = make_shard_fn(mesh, rules)
+            tx = shard(torch.from_numpy(x), ("batch", None, None)
+                       ).requires_grad_()
+            with implicit_replication():
+                y, aux = moe_apply(tp, tx, cfg, shard=shard)
+                loss = torch.sum(y * shard(torch.from_numpy(g),
+                                           ("batch", None, None))) + 3 * aux
+            loss.backward()
+            out["moe", shape, variant] = {
+                "out": full(y), "aux": full(aux), "dx": full(tx.grad),
+                "grads": {k: full(t.grad) for k, t in tp.items()},
+                "wi_local": tuple(tp["wi"].to_local().shape)}
+
+
 TASKS = {"allreduce": task_allreduce, "world4": task_world4,
-         "model2": task_model2, "serve2": task_serve2}
+         "model2": task_model2, "serve2": task_serve2, "share": task_share}
 
 
 def main() -> None:

@@ -11,6 +11,7 @@ The dry run's modules are imported inside the tasks that use them:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -239,11 +240,57 @@ def task_prefill_mesh() -> dict:
     return out
 
 
+# the shares of the production mesh: sizes at which a whole-batch tensor
+# would outweigh every rank's shards
+SHARE_GEMMA = dict(vocab_size=4096)
+SHARE_GEMMA_SHAPE = ShapeConfig("share", 64, 256, "train")
+SHARE_GRANITE_SHAPE = ShapeConfig("share", 32, 256, "train")
+SHARE_CACHE = (32, 256)
+
+
+def task_mesh_share() -> dict:
+    """On the (16, 16) fake group: a smoke gemma-2b train step whose global
+    logits would be the largest tensor; a smoke granite step (16 experts,
+    one a model rank) whose global token table would be; ``init_cache``
+    counted on its own."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.distributed.sharding import make_rules, make_shard_fn
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.launch.steps import _local_leaves, trace_cell
+    from repro_torch.models.model import build_model
+    from repro_torch.models.param import named_leaves
+    mesh = make_fake_mesh()
+    gemma = reduce_for_smoke(get_arch("gemma-2b")).with_(**SHARE_GEMMA)
+    traced = lambda cfg, shape: [
+        trace_cell(cfg, shape, mesh)[1][k]
+        for k in ("peak_bytes", "largest_bytes")]
+    out = {"gemma": traced(gemma, SHARE_GEMMA_SHAPE)}
+    granite = reduce_for_smoke(get_arch("granite-moe-1b-a400m"))
+    granite = granite.with_(moe=dataclasses.replace(granite.moe,
+                                                    num_experts=16))
+    out["granite"] = traced(granite, SHARE_GRANITE_SHAPE)
+    out["granite_moe"] = [granite.moe.num_experts, granite.moe.top_k,
+                          granite.d_model]
+    rules = make_rules("prefill")
+    with FakeTensorMode():
+        model = build_model(gemma, shard_fn=make_shard_fn(mesh, rules))
+        counter = OpCounter()
+        with counter:
+            cache = model.init_cache(*SHARE_CACHE, "cpu")
+        size = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        out["cache"] = {"peak": counter.costs.peak_bytes,
+                        "shards": size(_local_leaves(cache)),
+                        "global": size(t for _, t in named_leaves(cache))}
+    return out
+
+
 TASKS = {"bytes_single": lambda: task_bytes(False),
          "bytes_multi": lambda: task_bytes(True),
          "abstract": task_abstract, "deepseek": task_deepseek,
          "fake_vs_real": task_fake_vs_real, "allreduce": task_allreduce,
-         "prefill_mesh": task_prefill_mesh}
+         "prefill_mesh": task_prefill_mesh, "mesh_share": task_mesh_share}
 
 
 if __name__ == "__main__":

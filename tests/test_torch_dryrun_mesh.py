@@ -29,8 +29,9 @@ from repro.optim import cosine_schedule as jax_cosine
 
 ROOT = Path(__file__).resolve().parents[1]
 TASKS = Path(__file__).resolve().parent / "_torch_dryrun_tasks.py"
+sys.path.insert(0, str(TASKS.parent))
 NAMES = ["bytes_single", "bytes_multi", "abstract", "deepseek",
-         "fake_vs_real", "allreduce", "prefill_mesh"]
+         "fake_vs_real", "allreduce", "prefill_mesh", "mesh_share"]
 CELL = ["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
         "--mesh", "single", "--tag", "pytest"]
 TIMEOUT = 600
@@ -195,6 +196,44 @@ def test_prefill_on_a_mesh_places_its_cache(results, arch):
         assert len(placements) == 2
     if arch == "gemma-2b":
         assert got["cache"]["layers/k"][1] == ["S(1)", "R"]
+
+
+# ------------------------------------------------- each rank's share
+def test_train_step_holds_no_global_logits(results):
+    """A smoke gemma-2b step on (16, 16), its vocabulary and batch such that
+    the whole batch's fp32 logits would outweigh everything else a rank
+    holds: the loss's backward makes no tensor of their shape (DTensor's
+    gradient of a gather along a split dim did), and the counted peak stays
+    under a quarter of them."""
+    from _torch_dryrun_tasks import SHARE_GEMMA, SHARE_GEMMA_SHAPE
+    peak, largest = _get(results, "mesh_share")["gemma"]
+    s = SHARE_GEMMA_SHAPE
+    logits = s.global_batch * s.seq_len * SHARE_GEMMA["vocab_size"] * 4
+    assert peak < logits / 4
+    assert largest < logits / 16
+
+
+def test_moe_step_holds_no_global_token_table(results):
+    """A smoke granite step on (16, 16), one expert a model rank: no
+    storage reaches a quarter of the whole (T*k, d) table of dispatched
+    rows, which the dispatch held on every rank before."""
+    from _torch_dryrun_tasks import SHARE_GRANITE_SHAPE
+    got = _get(results, "mesh_share")
+    E, k, d = got["granite_moe"]
+    assert E == 16
+    _, largest = got["granite"]
+    s = SHARE_GRANITE_SHAPE
+    table = s.global_batch * s.seq_len * k * d * 4
+    assert largest < table / 4
+
+
+def test_init_cache_counts_its_shards_and_no_meta_storage(results):
+    """``init_cache`` on the fake mesh: the counted peak is exactly its
+    shards' bytes (a global stride taken from a meta tensor was counted as
+    a whole fp32 cache)."""
+    got = _get(results, "mesh_share")["cache"]
+    assert got["peak"] == got["shards"] > 0
+    assert got["global"] > got["shards"]
 
 
 def test_dryrun_cell_end_to_end(results):
