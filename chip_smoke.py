@@ -49,7 +49,21 @@ code is not 0:
    one channel, 3.1 GB whose byte index passes 2**31, every source offset
    mod 16, an odd w*C, C of 4 and of 7 and 64 (above the kernel's table), one
    row and a row of 4350 elements, within 1e-6; and the inputs its wrapper
-   must refuse;
+   must refuse.  ``[decode_seq_split]``: decode on a cache split over its
+   keys, as the ranks of a ``--seq-shard`` mesh hold it, in one process:
+   the cache cut into 4 and into 16 slices, the partial entry
+   (``decode_attention_partial``: out and log-sum-exp) on each, the slices
+   merged by the mesh path's ``merge_partials``, in fp32 and bf16, with
+   pos at the end and in the middle (empty slices, one partly valid with
+   several splits, or with so few keys that one split writes its lse), at
+   gemma-2b's widths (T=32768) and at one (16, 16) rank's share of
+   qwen2-72b decode_32k (B=8, H=64, Hkv=8, D=128, slices of 2048 keys);
+   each slice's out and lse against the plain partial's, the merged result
+   against the whole-cache kernel and the plain version, outputs at ``TOL``
+   of the reference's largest magnitude plus ``TOL`` relative (the gate
+   shown to refuse every slice's P.V off by 30%); one full slice timed
+   against its byte bound.  ``kernel_vs_plain`` also holds the partial
+   entry over the whole cache bit for bit against the launch without lse;
 2a. deepseek: full-width deepseek-v3-671b (d 7168, 128 heads of MLA, 256
    routed experts and one shared, MTP depth 1), its depth cut inside the
    script after each entry point is built (the full 61 layers fit no card),
@@ -109,7 +123,12 @@ code is not 0:
    DTensors, its losses held against phase 4's, 2 x 18 flash launches a
    step; the int8 all-reduce on one step's gradients against numpy; the
    served gemma-2b on the mesh giving phase 3's greedy tokens through the
-   decode kernel.  Each group is destroyed after its part;
+   decode kernel; ``gqa_decode`` at gemma-2b's widths on a cache placed as
+   ``--seq-shard``'s rules place it (``key_split_decode``: the key split
+   kept on the size-1 "model" dim), through ``split_call``, the partial
+   entry on ``local_call``'s shards and the merge's NCCL all-reduces,
+   against the meshless ``gqa_decode``.  Each group is destroyed after its
+   part;
 6. trace: where one full-width decode step and one full-width train step
    spend their time on the device (``torch.profiler``);
 7. train mamba2: ``Trainer.run`` on full-width mamba2-1.3b (48 layers, bf16,
@@ -223,8 +242,11 @@ from repro_torch.core.views import DatasetView  # noqa: E402
 from repro_torch.data import (  # noqa: E402
     DeviceFeeder, build_image_dataset, build_token_dataset)
 from repro_torch.distributed import HostFailure  # noqa: E402
+from repro_torch.distributed.sharding import (  # noqa: E402
+    merge_partials, slice_limit)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_ref, ops as da_ops)
+    decode_attention, decode_attention_partial, decode_attention_partial_ref,
+    decode_attention_ref, ops as da_ops)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, ops as fa_ops, ref_attention)
 from repro_torch.kernels.fused_preprocess import (  # noqa: E402
@@ -295,6 +317,22 @@ MOE_NEAR_TIE = 1e-5
 COUNTED = {"decode_attention": decode_attention,
            "flash_attention": flash_attention, "ssd_scan": ssd,
            "fused_preprocess": fused_preprocess}
+
+# [decode_seq_split]: the cache cut into these many key slices, at
+# gemma-2b's widths and at one (16, 16) rank's share of qwen2-72b
+# decode_32k (its batch of 128 over "data", T over "model": 2048 keys a
+# slice when cut 16 ways); pos at the end, and in the middle, SEQ_MID
+# keys into a slice (a plan of several splits) or SEQ_ONE (fewer than
+# ops.MIN_SPLIT_LEN: one split, which writes its lse itself), the later
+# slices empty
+SEQ_SPLITS = (4, 16)
+SEQ_WIDTHS = {"gemma-2b": dict(B=4, H=8, Hkv=1, D=256, T=32768),
+              "qwen2-72b share": dict(B=8, H=64, Hkv=8, D=128, T=16 * 2048)}
+SEQ_MID = 1000
+SEQ_ONE = 40
+# [dist]'s decode on a key-split cache: gemma-2b's widths, B and T as in
+# [decode_seq_split], pos at the end, mid-cache and SEQ_ONE
+KEY_SPLIT = dict(arch="gemma-2b", B=4, T=32768)
 
 # the shapes of tests/test_kernels.py::test_decode_attention_sweep
 SWEEP = [
@@ -547,9 +585,13 @@ def kernel_vs_plain():
     in bf16, nothing in fp32) plus the fp32 ``TOL``.  The profiler's kernel
     names show each bf16 case on the tensor-core kernel and each fp32 case
     on the CUDA-core one, and a case the plan gives one split in one launch,
-    with no combine."""
+    with no combine.  The partial entry over the same valid keys gives the
+    same output bit for bit (the launch with an lse pointer against the one
+    without), and its lse within the fp32 ``TOL`` of the plain one's, on
+    the one-split route and through the combine."""
     errors, routes, n_sm = {}, {}, torch.cuda.get_device_properties(0) \
         .multi_processor_count
+    lse_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
         route, ran = DECODE_ROUTES[dtype], set()
@@ -583,11 +625,164 @@ def kernel_vs_plain():
                 raise AssertionError(
                     f"kernel disagrees with plain at {name}: max|err| "
                     f"{errors[name]}, against fp32 {diff32.max().item()}")
-            del q, k, v, got, want, want32, diff, diff32
+            part, lse = decode_attention_partial(q, k, v, limit=min(pos + 1, T))
+            lse_want = decode_attention_partial_ref(q, k, v,
+                                                    limit=min(pos + 1, T))[1]
+            lse_diff = (lse - lse_want).abs()
+            lse_err = max(lse_err, lse_diff.max().item())
+            if not torch.equal(part, got) or not bool(
+                    (lse_diff <= TOL[torch.float32] * (1 + lse_want.abs())
+                     ).all()):
+                raise AssertionError(
+                    f"the partial entry at {name} differs from the launch "
+                    f"without lse, or its lse from plain by "
+                    f"{lse_diff.max().item()}")
+            del q, k, v, got, want, want32, diff, diff32, part, lse, lse_want
         routes[str(dtype)[6:]] = sorted(ran)
     _say("kernel_vs_plain", cases=len(errors), max_abs_err=max(errors.values()),
-         routes=routes, errors=errors)
+         routes=routes, partial_bit_equal=True, partial_lse_max_abs_err=lse_err,
+         errors=errors)
     return errors
+
+
+def _slices(q, k, v, pos: int, n: int):
+    """The partial entry on each of ``n`` contiguous key slices of the
+    caches, each with its share of the ``min(pos + 1, T)`` valid keys, as
+    ``sharding.split_call`` gives a rank its own -> (outs, lses, limits,
+    the slices)."""
+    T = k.shape[1]
+    T_loc, valid = T // n, min(pos + 1, T)
+    outs, lses, limits, parts = [], [], [], []
+    for r in range(n):
+        limit = slice_limit(valid, r * T_loc, T_loc)
+        ks, vs = (t[:, r * T_loc:(r + 1) * T_loc].contiguous()
+                  for t in (k, v))
+        out, lse = decode_attention_partial(q, ks, vs, limit=limit)
+        outs.append(out)
+        lses.append(lse)
+        limits.append(limit)
+        parts.append((ks, vs))
+    return outs, lses, limits, parts
+
+
+def _close(got, ref, tol: float) -> bool:
+    """``got`` finite and within ``tol`` of ``ref``'s largest magnitude plus
+    ``tol`` of each element's: attention over thousands of random keys gives
+    outputs of a few thousandths, which an absolute ``tol`` would not hold."""
+    diff = (got - ref).abs()
+    return bool(torch.isfinite(got).all()) and bool(
+        (diff <= tol * ref.abs().max() + tol * ref.abs()).all())
+
+
+def decode_seq_split(card: str):
+    """``[decode_seq_split]``: the decode cache split over its keys, each
+    slice through the partial entry, merged by log-sum-exp (the mesh
+    path's ``merge_partials``).  Each slice's out against the plain
+    partial's by :func:`_close` at ``TOL`` and its lse at the fp32 ``TOL``;
+    the merged result by :func:`_close` at ``TOL`` against the whole-cache
+    kernel and the plain version, and the gate shown to refuse the merge of
+    every slice's out off by 30%.  At pos ``T // 2 + SEQ_ONE`` the partly
+    valid slice runs on the one-split route.  Launches counted on the
+    merged path only (one a slice with a valid key, none on an empty one).
+    One full slice of each width timed in bf16 against its byte bound ->
+    (launches, max error, timings)."""
+    t0 = time.perf_counter()
+    launches, errors, lse_err, timed = 0, {}, 0.0, []
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator("cuda")
+    for width, c in SEQ_WIDTHS.items():
+        B, H, Hkv, D, T = (c[n] for n in ("B", "H", "Hkv", "D", "T"))
+        gen.manual_seed(7)
+        base = [torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((B, H, D), (B, T, Hkv, D), (B, T, Hkv, D))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in base)
+            tol = TOL[dtype]
+            for pos in (T - 1, T // 2 + SEQ_MID, T // 2 + SEQ_ONE):
+                whole = decode_attention(q, k, v, pos=pos).float()
+                plain = decode_attention_ref(q, k, v, pos=pos).float()
+                for n in SEQ_SPLITS:
+                    name = f"{width} {str(dtype)[6:]} pos{pos} {n} slices"
+                    _reset_counts()
+                    outs, lses, limits, parts = _slices(q, k, v, pos, n)
+                    got = merge_partials(torch.stack(outs), torch.stack(lses)
+                                         ).to(dtype).float()
+                    counts = _counts()
+                    valid = sum(1 for lim in limits if lim)
+                    _check_counts(counts, {"decode_attention": valid},
+                                  f"decode_seq_split {name}")
+                    launches += valid
+                    partly = [lim for lim in limits if 0 < lim < T // n]
+                    if pos != T - 1 and not (0 in limits and partly):
+                        raise AssertionError(f"pos {pos} leaves no empty and "
+                                             f"partly valid slice: {limits}")
+                    if pos == T // 2 + SEQ_ONE and da_ops.plan(
+                            B, H, Hkv, D, partly[0], n_sm, dtype).n_split != 1:
+                        raise AssertionError(f"{name}: {partly[0]} keys are "
+                                             f"planned in more than one split")
+                    for r, (ks, vs) in enumerate(parts):
+                        want_out, want = decode_attention_partial_ref(
+                            q, ks, vs, limit=limits[r])
+                        if limits[r] == 0:
+                            ok = bool((lses[r] == -math.inf).all()) and \
+                                not outs[r].any()
+                        else:
+                            d = (lses[r] - want).abs()
+                            lse_err = max(lse_err, d.max().item())
+                            ok = bool((d <= TOL[torch.float32] * (
+                                1 + want.abs())).all()) and _close(
+                                outs[r].float(), want_out.float(), tol)
+                            key = f"{name}, each slice vs plain"
+                            errors[key] = max(errors.get(key, 0.0), (
+                                outs[r].float() - want_out.float()
+                            ).abs().max().item())
+                        if not ok:
+                            raise AssertionError(
+                                f"out or lse of slice {r} of {name} "
+                                f"disagrees with plain")
+                    for ref_name, ref in (("kernel", whole), ("plain", plain)):
+                        errors[f"{name} vs {ref_name}"] = \
+                            (got - ref).abs().max().item()
+                        if not _close(got, ref, tol):
+                            raise AssertionError(
+                                f"merged slices disagree with the {ref_name} "
+                                f"at {name}: max|err| "
+                                f"{errors[f'{name} vs {ref_name}']}")
+                    off = merge_partials(torch.stack(outs).float() * 1.3,
+                                         torch.stack(lses))
+                    if _close(off, plain, tol):
+                        raise AssertionError(f"the gate at {name} passes "
+                                             f"every slice's P.V off by 30%")
+                    del outs, lses, parts
+        # one full slice of the 16-way cut, bf16, timed against its bound
+        q, k, v = (t.to(torch.bfloat16) for t in base)
+        T_loc = T // SEQ_SPLITS[-1]
+        ks, vs = (t[:, :T_loc].contiguous() for t in (k, v))
+        ops, nbytes = da_ops.costs(q, ks, T_loc)
+        shape = (f"{width}: B={B} H={H} Hkv={Hkv} D={D} slice of {T_loc} "
+                 f"keys, all valid, bf16")
+        timed.append({
+            "shape": shape,
+            "ms": device_ms(lambda: decode_attention_partial(
+                q, ks, vs, limit=T_loc)),
+            "whole_slice_ms": device_ms(lambda: decode_attention(
+                q, ks, vs, pos=T_loc - 1)),
+            "plain_ms": device_ms(lambda: decode_attention_partial_ref(
+                q, ks, vs, limit=T_loc)),
+            "library_ms": device_ms(lambda: library_call(q, ks, vs,
+                                                         T_loc - 1)),
+            **_bound("decode_attention_partial", shape, nbytes, ops,
+                     FP32_OPS_PER_S, card),
+            "card": card})
+        del base, q, k, v, ks, vs
+        torch.cuda.empty_cache()
+    _say("decode_seq_split", launches=launches,
+         max_abs_err=max(errors.values()), lse_max_abs_err=lse_err,
+         tol={str(k)[6:]: t for k, t in TOL.items()},
+         tol_of="the reference's largest magnitude, plus relative",
+         refuses_pv_off_by_30pct=True, timed=timed,
+         phase_s=time.perf_counter() - t0, errors=errors)
+    return launches, max(errors.values()), timed
 
 
 def _flash_inputs(B, S, H, Hkv, D, dtype, seed=0):
@@ -1557,6 +1752,65 @@ def dist_restore(ckpt, state) -> dict:
     return {"restore_s": restore_s, "s": time.perf_counter() - t_phase}
 
 
+def key_split_decode(mesh, device: str = "cuda") -> dict:
+    """``gqa_decode`` at ``KEY_SPLIT``'s widths on ``mesh`` (one rank), its
+    caches placed as ``--seq-shard``'s rules place them, with each split the
+    rules name kept on its size-1 mesh dim (``placements_for`` would make it
+    whole): so the key-split route runs, ``split_call`` with the partial
+    entry on ``local_call``'s shards and the merge's all-reduces.  Random
+    bf16 weights and inputs from a seed; per pos (the end, mid-cache,
+    ``SEQ_ONE``), one launch, the output within :func:`_close` at the bf16
+    ``TOL`` of the meshless ``gqa_decode``'s and the caches equal to its ->
+    {launches, max_abs_err}."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import (distribute, make_rules,
+                                                  mesh_axis_names, spec_for)
+    cfg = get_arch(KEY_SPLIT["arch"])
+    B, T = KEY_SPLIT["B"], KEY_SPLIT["T"]
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device).manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    params = {n: (rand(*sp.shape) / math.sqrt(sp.shape[0])).to(torch.bfloat16)
+              for n, sp in attn_lib.gqa_specs(cfg).items()}
+    x = rand(B, 1, cfg.d_model).to(torch.bfloat16)
+    cache = [rand(B, T, Hkv, D).to(torch.bfloat16) for _ in range(2)]
+    spec = spec_for((B, T, Hkv, D), ("batch", "seq", "heads", None), mesh,
+                    make_rules("decode", seq_shard="model"))
+    names = mesh_axis_names(mesh)
+    pl = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            pl[names.index(a)] = Shard(dim)
+    if Shard(1) not in pl:
+        raise AssertionError(f"--seq-shard's rules leave the keys whole: "
+                             f"{spec}")
+    launches, err = 0, 0.0
+    for pos in (T - 1, T // 2 + SEQ_MID, SEQ_ONE):
+        ck, cv = (distribute(c.clone(), mesh, pl) for c in cache)
+        wk, wv = (c.clone() for c in cache)
+        with torch.no_grad():
+            want, wk, wv = attn_lib.gqa_decode(params, x, wk, wv, pos, cfg)
+            _reset_counts()
+            with implicit_replication():
+                got, ck, cv = attn_lib.gqa_decode(params, x, ck, cv, pos, cfg)
+            got = got.full_tensor()
+            counts = _counts()
+        _check_counts(counts, {"decode_attention": 1},
+                      f"decode on a key-split cache at pos {pos}")
+        launches += 1
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        if not (_close(got.float(), want.float(), TOL[torch.bfloat16])
+                and torch.equal(ck.full_tensor(), wk)
+                and torch.equal(cv.full_tensor(), wv)):
+            raise AssertionError(f"decode on a key-split cache at pos {pos} "
+                                 f"differs from the meshless decode by {err}")
+        del ck, cv, wk, wv, got, want
+    return {"launches": launches, "max_abs_err": err,
+            "placements": str(tuple(pl))}
+
+
 def dist(card: str, train_ref=None, served=None, restored=None):
     """[dist]: the distributed path in an NCCL world of one (one card; NCCL
     puts no two ranks on one device, so no multi-rank run is made here).
@@ -1571,8 +1825,10 @@ def dist(card: str, train_ref=None, served=None, restored=None):
     leaves within 1e-6 of each leaf's largest value; then
     ``Server.generate`` on the mesh from the served params' seed, whose
     greedy tokens must be ``[serve]``'s (``served``), through the decode
-    kernel.  Without ``train_ref``, ``restored`` and ``served``, fresh
-    meshless runs make them."""
+    kernel; and :func:`key_split_decode` on the mesh.  Without
+    ``train_ref``, ``restored`` and ``served``, fresh meshless runs make
+    them -> (flash launches, decode launches of the Trainer and Server,
+    :func:`key_split_decode`'s result)."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed.collectives import (collective_wire_bytes,
@@ -1664,6 +1920,8 @@ def dist(card: str, train_ref=None, served=None, restored=None):
                                  "from [serve]'s")
         tok_s = srv.throughput()
         del srv
+        torch.cuda.empty_cache()
+        key_split = key_split_decode(mesh)
     torch.cuda.empty_cache()
     # the meshed step's peak (the vocab-parallel loss on DTensors) against
     # the meshless one's, each over Trainer.run
@@ -1677,9 +1935,10 @@ def dist(card: str, train_ref=None, served=None, restored=None):
              "step_s"], allreduce_ms=ar_ms, allreduce_err=ar_err,
          wire_bytes=wire, restore_exact=True,
          restore_s=restored["restore_s"], tokens_equal=True,
-         tokens_per_s=tok_s,
+         tokens_per_s=tok_s, key_split_decode=key_split,
          phase_s=time.perf_counter() - t_phase + restored["s"])
-    return counts["flash_attention"], serve_counts["decode_attention"]
+    return (counts["flash_attention"], serve_counts["decode_attention"],
+            key_split)
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2742,6 +3001,7 @@ def main() -> None:
     t_start = time.perf_counter()
     card = environment()
     errors = kernel_vs_plain()
+    seq_launches, seq_err, seq_timed = decode_seq_split(card)
     flash_errors = flash_vs_plain()
     flash_errors.update(flash_prefill_vs_plain())
     ssd_errors = ssd_vs_plain()
@@ -2774,7 +3034,8 @@ def main() -> None:
                                    hold_peak=True)["flash_attention"]
     del trainer, state, batch
     torch.cuda.empty_cache()
-    dist_flash, dist_decode = dist(card, train_ref, served, restored)
+    dist_flash, dist_decode, key_split = dist(card, train_ref, served,
+                                              restored)
     flash_launches += dist_flash
     launches += dist_decode
     lake = zipf_lake(MAMBA2_JOB, get_arch(MAMBA2_JOB.arch).vocab_size)
@@ -2821,10 +3082,14 @@ def main() -> None:
         "source": "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:65",
         "launches": launches,
-        "max_abs_err": max(errors.values()),
+        "max_abs_err": max(max(errors.values()), seq_err,
+                           key_split["max_abs_err"]),
         **{k: serving[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")},
         "shapes": decode_rows,
+        "seq_split_launches": seq_launches,
+        "key_split_launches": key_split["launches"],
+        "seq_split_shapes": seq_timed,
     }
     ssd_entry = {
         "name": "ssd_scan",

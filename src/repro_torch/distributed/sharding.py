@@ -184,14 +184,9 @@ def sharded(make, shape: Tuple[int, ...], dtype: torch.dtype, mesh,
     """A DTensor of global ``shape`` and ``placements`` on ``mesh`` whose
     shard on this rank ``make`` (``torch.zeros``, ``torch.empty``, ...)
     makes: no rank ever holds the whole tensor."""
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    with unset_fake_temporarily():      # it reads index tensors' values
-        local_shape = compute_local_shape_and_global_offset(
-            shape, mesh, placements)[0]
-    local = make(local_shape, dtype=dtype, device=device)
+    local = make(_local_box(shape, mesh, placements)[0], dtype=dtype,
+                 device=device)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=torch.Size(shape),
                               stride=contiguous_stride(shape))
@@ -322,7 +317,7 @@ class _ContiguousGrad(torch.autograd.Function):
 
 
 def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
-               outs=((0, None),)):
+               outs=((0, None),), keep: Optional[int] = None):
     """``fn`` on each rank's shards, for a function whose work splits over
     the batch (dim 0) and over heads, with no exchange between the pieces:
     the kernels' wrappers, which launch on ``data_ptr()`` and so must never
@@ -343,7 +338,8 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
     ``fit_spec`` leaves it, and each rank hands ``fn``, for each of its
     query heads ``h``, the group head it uses (``h // (H / Hk)``), so that
     the local grouping is one to one; the gradients of the copies sum back
-    into their head, and over the ranks.
+    into their head, and over the ranks.  A group operand's dim ``keep``, if
+    given, stays split where it is split (``split_call``'s keys).
     """
     tensors = (q,) + tuple(groups) + tuple(t for t, _ in per_head)
     if not any(is_dtensor(t) for t in tensors):
@@ -393,6 +389,10 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
         G = H // Hk
         aligned = Hk % split == 0
         pl, grad = target(0, group_dim, heads_split=aligned)
+        if keep is not None and is_dtensor(t):
+            for i, p in enumerate(t.placements):
+                if p == Shard(keep):
+                    pl[i] = grad[i] = p
         lt = local(t, pl, grad)
         if not aligned:
             idx = torch.arange(h0, h0 + H_loc, device=lt.device) // G
@@ -409,6 +409,105 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
         pl, _ = target(bd, q_dim if hd is None else hd)
         wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
     return wrapped[0] if single else tuple(wrapped)
+
+
+def split_dims(x: torch.Tensor, dim: int) -> Tuple[int, ...]:
+    """The mesh dims that split dimension ``dim`` of ``x``: () for a plain
+    tensor."""
+    if not is_dtensor(x):
+        return ()
+    from torch.distributed.tensor import Shard
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == dim % x.ndim)
+
+
+def _local_box(shape, mesh, placements):
+    """(shape, global offset) of this rank's shard of a DTensor of global
+    ``shape`` and ``placements``."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    with unset_fake_temporarily():      # it reads index tensors' values
+        return compute_local_shape_and_global_offset(shape, mesh, placements)
+
+
+def _local_range(x: torch.Tensor, dim: int) -> Tuple[int, int]:
+    """(offset, size) of this rank's shard of DTensor ``x`` along ``dim``."""
+    shape, offset = _local_box(x.shape, x.device_mesh, x.placements)
+    return offset[dim], shape[dim]
+
+
+def write_slot(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``cache[:, slot] = value`` in place, for a cache (B, T, ...) and a
+    value (B, ...).  Where a mesh splits T, only the rank whose shard holds
+    ``slot`` writes, into its own shard (DTensor would gather the cache
+    along T to select the slot, and write into the gathered copy)."""
+    value = value.to(cache.dtype)
+    if not split_dims(cache, 1):
+        cache[:, slot] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    # the value split as the cache is, but for its missing T dim
+    pl = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) and p.dim != 1
+          else Replicate() for p in cache.placements]
+    local = distribute(value, cache.device_mesh, pl).to_local()
+    start, size = _local_range(cache, 1)
+    if start <= slot < start + size:
+        cache.to_local()[:, slot - start] = local
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   reduce=None) -> torch.Tensor:
+    """Attention over disjoint slices of the keys, merged by log-sum-exp:
+    each slice's normalised ``out`` (..., D) weighted by ``exp(lse - M)``,
+    ``M`` the largest ``lse`` (...), summed and divided by the weights' sum
+    -> fp32.  ``reduce(x, op)`` ("max", "sum") reduces over the slices: by
+    default over dim 0 of stacked ones; across ranks, an all-reduce.  A
+    slice with no key (``lse`` -inf, ``out`` zeros) weighs nothing."""
+    if reduce is None:
+        reduce = lambda x, op: x.amax(0) if op == "max" else x.sum(0)
+    w = torch.exp(lse - reduce(lse, "max"))[..., None]
+    both = reduce(torch.cat([out.float() * w, w], dim=-1), "sum")
+    return both[..., :-1] / both[..., -1:]
+
+
+def slice_limit(limit: int, start: int, size: int) -> int:
+    """The valid keys of the slice ``[start, start + size)`` of keys whose
+    first ``limit`` are valid: ``clamp(limit - start, 0, size)``."""
+    return min(max(limit - start, 0), size)
+
+
+def split_call(partial, q, groups, *, limit: int, q_dim: int, group_dim: int,
+               key_dim: int):
+    """Attention over grouped-query operands whose keys (``key_dim``) a mesh
+    splits, by ``partial(q, *groups, limit) -> (out, lse)`` on each rank's
+    slice, ``limit`` keys of the whole valid (the first ones), merged by
+    :func:`merge_partials` over the mesh dims that split the keys.
+
+    ``q`` is made whole along those dims (its batch and heads, a few hundred
+    KB), the groups keep their key split and are otherwise made local as
+    :func:`local_call` makes them; each rank's slice holds
+    :func:`slice_limit` valid keys; the merge is an
+    all-reduce of the max of ``lse``, then one of the weighted outputs and
+    the weights together.  The result is placed as ``q`` was."""
+    from torch.distributed.tensor import Replicate
+    first = groups[0]
+    mesh, dims = first.device_mesh, split_dims(first, key_dim)
+    mine = slice_limit(limit, *_local_range(first, key_dim))
+    # a pending sum of q (its projection's contraction split) is reduced
+    placed = [Replicate() if p.is_partial() else p for p in q.placements] \
+        if is_dtensor(q) else [Replicate()] * mesh.ndim
+    whole = distribute(q, mesh, [Replicate() if i in dims else p
+                                 for i, p in enumerate(placed)])
+
+    def fn(q, *groups):
+        out, lse = partial(q, *groups, mine)
+        return merge_partials(
+            out, lse, lambda x, op: reduce_over(x, op, mesh, dims)
+        ).to(q.dtype)
+    out = local_call(fn, whole, groups, q_dim=q_dim, group_dim=group_dim,
+                     keep=key_dim)
+    return distribute(out, mesh, placed)
 
 
 def place_tree(tree, placements, mesh):

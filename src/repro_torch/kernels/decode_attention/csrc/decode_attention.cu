@@ -60,6 +60,13 @@
 // scratch and `decode_combine_kernel` merges the partials of a (b, h) row in
 // parallel: one block per (row, 32 columns of D), its 8 warps taking every
 // 8th split, each lane one column.
+//
+// Given an `lse` pointer, whichever launch writes the output also writes each
+// (b, h) row's log-sum-exp of its scaled scores, in natural units (the bf16
+// route converts its log2 max once, there).  The cache handed in is then one
+// rank's slice of a cache split over keys, and the ranks' (out, lse) pairs
+// merge as the splits here do (distributed/sharding.py::merge_partials).
+// Without it nothing else changes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +78,7 @@ constexpr int kMaxD = 256;
 constexpr int kMaxSplit = 1024;
 constexpr int kHeads = 8;      // query heads of one KV head in a bf16 block
 constexpr float kNegInf = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // ------------------------------------------------------------ fp32 route
 
@@ -104,8 +112,9 @@ __global__ void __launch_bounds__(kThreads)
 decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ out,
                    float* __restrict__ part_acc, float* __restrict__ part_ml,
-                   int H, int Hkv, int T_len, int D, int n_grp, int limit,
-                   int split_len, int n_split, float scale) {
+                   float* __restrict__ lse, int H, int Hkv, int T_len, int D,
+                   int n_grp, int limit, int split_len, int n_split,
+                   float scale) {
   const int split = blockIdx.y;
   const int start = split * split_len;
   if (start >= limit) return;
@@ -242,6 +251,7 @@ decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t row = row0 + g;
     if (n_split == 1) {
       out[row * D + d] = a / fmaxf(sum, 1e-30f);
+      if (lse != nullptr && d == 0) lse[row] = mx + logf(sum);
     } else {
       part_acc[(row * n_split + split) * D + d] = a;
       if (d == 0) {
@@ -254,29 +264,30 @@ decode_simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int GM>
 void launch_simt(const float* q, const float* k, const float* v, float* out,
-                 float* part_acc, float* part_ml, int B, int H, int Hkv,
+                 float* part_acc, float* part_ml, float* lse, int B, int H,
+                 int Hkv,
                  int T_len, int D, int limit, int split_len, int n_split,
                  float scale, cudaStream_t stream) {
   const int n_grp = (H / Hkv + GM - 1) / GM;
   const dim3 grid(B * Hkv * n_grp, n_split);
   decode_simt_kernel<GM><<<grid, kThreads, 0, stream>>>(
-      q, k, v, out, part_acc, part_ml, H, Hkv, T_len, D, n_grp, limit,
+      q, k, v, out, part_acc, part_ml, lse, H, Hkv, T_len, D, n_grp, limit,
       split_len, n_split, scale);
 }
 
 int dispatch_simt(int gm, const void* q, const void* k, const void* v,
-                  void* out, float* part_acc, float* part_ml, int B, int H,
-                  int Hkv, int T_len, int D, int limit, int split_len,
+                  void* out, float* part_acc, float* part_ml, float* lse, int B,
+                  int H, int Hkv, int T_len, int D, int limit, int split_len,
                   int n_split, float scale, cudaStream_t stream) {
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   switch (gm) {
-    case 1: launch_simt<1>(qf, kf, vf, of, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
-    case 2: launch_simt<2>(qf, kf, vf, of, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
-    case 4: launch_simt<4>(qf, kf, vf, of, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
-    case 8: launch_simt<8>(qf, kf, vf, of, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
+    case 1: launch_simt<1>(qf, kf, vf, of, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
+    case 2: launch_simt<2>(qf, kf, vf, of, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
+    case 4: launch_simt<4>(qf, kf, vf, of, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
+    case 8: launch_simt<8>(qf, kf, vf, of, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
@@ -394,9 +405,9 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
-                  float* __restrict__ part_ml, int H, int Hkv, int T_len,
-                  int D, int n_grp, int limit, int split_len, int n_split,
-                  float scale) {
+                  float* __restrict__ part_ml, float* __restrict__ lse, int H,
+                  int Hkv, int T_len, int D, int n_grp, int limit,
+                  int split_len, int n_split, float scale) {
   constexpr int BK = 16 * WARPS;   // keys a tile: 16 a warp
   constexpr int THREADS = 32 * WARPS;
   constexpr int LD = DP + 8;       // row stride in elements: 16 B of padding
@@ -619,13 +630,16 @@ decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (n_split > 1 && g == 0) {
       part_ml[(row * n_split + split) * 2] = m[c];
       part_ml[(row * n_split + split) * 2 + 1] = l[c];
+    } else if (n_split == 1 && lse != nullptr && g == 0) {
+      lse[row] = m[c] * kLn2 + logf(l[c]);
     }
   }
 }
 
 template <int DP, int WARPS, int STAGES>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               float* part_acc, float* part_ml, int B, int H, int Hkv,
+               float* part_acc, float* part_ml, float* lse, int B, int H,
+               int Hkv,
                int T_len, int D, int limit, int split_len, int n_split,
                float scale, cudaStream_t stream) {
   constexpr int bytes = mma_smem_bytes<DP, WARPS, STAGES>();
@@ -644,23 +658,24 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      part_acc, part_ml, H, Hkv, T_len, D, n_grp, limit, split_len, n_split,
-      scale);
+      part_acc, part_ml, lse, H, Hkv, T_len, D, n_grp, limit, split_len,
+      n_split, scale);
   return (int)cudaGetLastError();
 }
 
 // The table (DP, WARPS, STAGES) by D is mirrored by ops.py::MMA_TILES.
 int dispatch_mma(const void* q, const void* k, const void* v, void* out,
-                 float* part_acc, float* part_ml, int B, int H, int Hkv,
+                 float* part_acc, float* part_ml, float* lse, int B, int H,
+                 int Hkv,
                  int T_len, int D, int limit, int split_len, int n_split,
                  float scale, cudaStream_t stream) {
   if (D <= 64)
-    return launch_mma<64, 4, 4>(q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
+    return launch_mma<64, 4, 4>(q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
   if (D <= 80)
-    return launch_mma<80, 4, 4>(q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
+    return launch_mma<80, 4, 4>(q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
   if (D <= 128)
-    return launch_mma<128, 4, 4>(q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
-  return launch_mma<256, 4, 3>(q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
+    return launch_mma<128, 4, 4>(q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
+  return launch_mma<256, 4, 3>(q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, stream);
 }
 
 // ------------------------------------------------------------ combine
@@ -672,12 +687,14 @@ __device__ inline void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(
 
 // Block (b, h row, 32 columns of D): merges the row's partials of the splits
 // that hold a valid key (ceil(limit / split_len) of them).  m is in log2
-// units when LOG2 (the bf16 route), natural units otherwise.
+// units when LOG2 (the bf16 route), natural units otherwise; the row's lse,
+// if asked for, in natural units.
 template <typename T, bool LOG2>
 __global__ void __launch_bounds__(32 * kCombineWarps)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml, T* __restrict__ out,
-                      int D, int limit, int split_len, int n_split) {
+                      float* __restrict__ lse, int D, int limit, int split_len,
+                      int n_split) {
   constexpr int THREADS = 32 * kCombineWarps;
   const int row = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -712,6 +729,8 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 #pragma unroll
   for (int i = 0; i < kCombineWarps; ++i) denom += stat[1][i];
   denom = fmaxf(denom, 1e-30f);
+  if (lse != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
+    lse[row] = (LOG2 ? mx * kLn2 : mx) + logf(denom);
 
   // warp i takes every 8th split from i, lane j column d
   float a = 0.f;
@@ -732,11 +751,12 @@ decode_combine_kernel(const float* __restrict__ part_acc,
 
 template <typename T, bool LOG2>
 int launch_combine(const float* part_acc, const float* part_ml, void* out,
-                   int rows, int D, int limit, int split_len, int n_split,
-                   cudaStream_t stream) {
+                   float* lse, int rows, int D, int limit, int split_len,
+                   int n_split, cudaStream_t stream) {
   const dim3 grid(rows, (D + 31) / 32);
   decode_combine_kernel<T, LOG2><<<grid, 32 * kCombineWarps, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), D, limit, split_len, n_split);
+      part_acc, part_ml, static_cast<T*>(out), lse, D, limit, split_len,
+      n_split);
   return (int)cudaGetLastError();
 }
 
@@ -747,12 +767,14 @@ int launch_combine(const float* part_acc, const float* part_ml, void* out,
 // q (B,H,D), k/v (B,T,Hkv,D), out (B,H,D), contiguous and 16-byte aligned.
 // n_split == 1 writes out directly and reads no scratch (part_acc and
 // part_ml may be null); otherwise part_acc is (B*H, n_split, D) fp32 and
-// part_ml (B*H, n_split, 2) fp32, and a second launch merges them.
+// part_ml (B*H, n_split, 2) fp32, and a second launch merges them.  lse, if
+// not null, is (B*H,) fp32: each row's log-sum-exp of its scaled scores.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
                                        const void* v, void* out, float* part_acc,
-                                       float* part_ml, int B, int H, int Hkv,
-                                       int T_len, int D, int limit, int gm,
+                                       float* part_ml, float* lse, int B,
+                                       int H, int Hkv, int T_len, int D,
+                                       int limit, int gm,
                                        int split_len, int n_split, float scale,
                                        void* stream) {
   if (B < 1 || Hkv < 1 || H % Hkv != 0 || D < 8 || D % 8 != 0 || D > kMaxD ||
@@ -764,13 +786,13 @@ extern "C" int decode_attention_launch(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err;
   if (dtype == 0) {
-    err = dispatch_simt(gm, q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, s);
+    err = dispatch_simt(gm, q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, s);
     if (err == 0 && n_split > 1)
-      err = launch_combine<float, false>(part_acc, part_ml, out, B * H, D, limit, split_len, n_split, s);
+      err = launch_combine<float, false>(part_acc, part_ml, out, lse, B * H, D, limit, split_len, n_split, s);
   } else if (dtype == 1 && gm == kHeads) {
-    err = dispatch_mma(q, k, v, out, part_acc, part_ml, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, s);
+    err = dispatch_mma(q, k, v, out, part_acc, part_ml, lse, B, H, Hkv, T_len, D, limit, split_len, n_split, scale, s);
     if (err == 0 && n_split > 1)
-      err = launch_combine<__nv_bfloat16, true>(part_acc, part_ml, out, B * H, D, limit, split_len, n_split, s);
+      err = launch_combine<__nv_bfloat16, true>(part_acc, part_ml, out, lse, B * H, D, limit, split_len, n_split, s);
   } else {
     err = (int)cudaErrorInvalidValue;
   }

@@ -14,6 +14,10 @@ has more than one split.  A fake tensor (the dry run, ``kernels/_fake.py``),
 on any device, takes the kernel's route up to the launch, planned for an
 H100's SMs, allocates the same scratch, and reports the call with
 :func:`costs` in its place.
+
+:func:`decode_attention_partial` is the same launch over one rank's slice of
+a cache split over keys: it also returns each (b, h) row's log-sum-exp, by
+which the ranks' slices merge (``distributed.sharding.merge_partials``).
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from .. import _build, _fake
-from .ref import decode_attention_ref
+from .ref import decode_attention_partial_ref, decode_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 
@@ -70,7 +74,7 @@ def library_path() -> Path:
 def _bind(lib: ctypes.CDLL) -> None:
     fn = lib.decode_attention_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -181,9 +185,41 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     if pos < 0:
         raise ValueError(f"pos must be >= 0, got {pos}")
     _check(q, cache_k, cache_v)
-    fake = _fake.is_fake(q)
-    if q.device.type == "cpu" and not fake:
+    if q.device.type == "cpu" and not _fake.is_fake(q):
         return decode_attention_ref(q, cache_k, cache_v, pos=pos, window=window)
+    # both cache rules: idx <= pos, and idx < T
+    return _launch(q, cache_k, cache_v, min(pos + 1, cache_k.shape[1]))
+
+
+def decode_attention_partial(q: torch.Tensor, k_slice: torch.Tensor,
+                             v_slice: torch.Tensor, *, limit: int):
+    """q (B,H,D); a slice of the caches (B,T_loc,Hkv,D) whose first ``limit``
+    keys are valid (0 <= limit <= T_loc) -> (out (B,H,D) in q's dtype, the
+    slice's attention; lse (B,H) fp32, the log-sum-exp of its scaled scores
+    in natural units).
+
+    On the CPU this is :func:`decode_attention_partial_ref`.  On a CUDA
+    device it launches the kernel, writing ``lse`` beside the output, and
+    adds one to ``decode_attention.launches``; with no valid key it launches
+    nothing and returns zeros and ``-inf``.
+    """
+    limit = operator.index(limit)
+    _check(q, k_slice, v_slice)
+    if not 0 <= limit <= k_slice.shape[1]:
+        raise ValueError(f"limit {limit} is not in 0..{k_slice.shape[1]}")
+    if q.device.type == "cpu" and not _fake.is_fake(q):
+        return decode_attention_partial_ref(q, k_slice, v_slice, limit=limit)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    if limit == 0:
+        return torch.zeros_like(q), lse.fill_(-math.inf)
+    return _launch(q, k_slice, v_slice, limit, lse), lse
+
+
+def _launch(q, cache_k, cache_v, limit: int, lse=None) -> torch.Tensor:
+    """The kernel over the first ``limit`` keys (>= 1) of the caches, on a
+    CUDA device (or reported, for a fake tensor); ``lse`` (B,H) fp32, if
+    given, takes each row's log-sum-exp."""
+    fake = _fake.is_fake(q)
     if q.device.type != "cuda" and not fake:
         raise ValueError(f"no decode attention for device {q.device}")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == cache_k.dtype
@@ -197,7 +233,6 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     for name, t in (("q", q), ("cache_k", cache_k), ("cache_v", cache_v)):
         if not t.is_contiguous() or (not fake and t.data_ptr() % 16):
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    limit = min(pos + 1, T)   # both cache rules: idx <= pos, and idx < T
     if fake:
         from repro_torch.launch.mesh import H100
         n_sm = H100["sm_count"]
@@ -216,6 +251,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
             cache_v.data_ptr(), out.data_ptr(),
             None if part_acc is None else part_acc.data_ptr(),
             None if part_ml is None else part_ml.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, H, Hkv, T, D, limit, p.heads, p.split_len, p.n_split,
             1.0 / math.sqrt(D), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

@@ -22,12 +22,15 @@ keys in order, as JAX keeps it, so decode continues from it at the right
 slots only when the prompt is at most ``window`` long or a multiple of it.
 
 Under a mesh the operands are DTensors.  JAX leaves the partitioning of its
-Pallas calls to GSPMD; the port runs each kernel on every rank's shards
-(``distributed.sharding.local_call``: the batch and the query heads split,
-the rest whole), with the same result, because no (batch, head) row of
-attention needs another's.  Where the KV heads do not divide the model axis
-they stay whole, and each rank gives the kernel only the KV heads its query
-heads use.
+Pallas calls to GSPMD; the port runs each kernel, and the plain impls too,
+on every rank's shards (``distributed.sharding.local_call``: the batch and
+the query heads split, the rest whole), with the same result, because no
+(batch, head) row of attention needs another's.  Where the KV heads do not
+divide the model axis they stay whole, and each rank gives the kernel only
+the KV heads its query heads use.  Where the rules split a decode cache
+over its keys (``--seq-shard``), each rank attends over its own slice and
+the ranks merge their partials by log-sum-exp
+(``distributed.sharding.split_call``), so that no cache is gathered.
 
 MLA runs no kernel, as in JAX: training and prefill expand K/V from the
 latents and run the plain ``blockwise_attention`` under every impl (on each
@@ -43,8 +46,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import local_call
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.distributed.sharding import (local_call, split_call,
+                                              split_dims, write_slot)
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_partial,
+                                                  decode_attention_partial_ref)
 from repro_torch.kernels.flash_attention import flash_attention
 
 from .layers import apply_rope
@@ -246,10 +252,15 @@ def gqa_attend(q, k, v, cfg, *, window: int = 0, impl: str = "kernel",
                                             window=window, scale=scale),
             q, (k, v), q_dim=2, group_dim=2)
     if impl in ("torch", "torch_pairs"):
-        return blockwise_attention(q, k, v, scale=scale, causal=True,
-                                   window=window,
-                                   pairs=(impl == "torch_pairs"),
-                                   q_offset=q_offset)
+        # on each rank's (batch, head) shards, as the kernel runs: the
+        # reshape of q's heads into (Hkv, G) would split a dim sharded
+        # unevenly, and DTensor's einsum would merge a data-split batch dim
+        # with a model-split head dim, which it places only by reading values
+        return local_call(
+            lambda q, k, v: blockwise_attention(
+                q, k, v, scale=scale, causal=True, window=window,
+                pairs=(impl == "torch_pairs"), q_offset=q_offset),
+            q, (k, v), q_dim=2, group_dim=2)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 
@@ -300,22 +311,36 @@ def gqa_decode(params, x, cache_k, cache_v, pos: int, cfg, *, window: int = 0,
     ``pos % window`` for a ring buffer and ``pos`` otherwise, and returns them
     too, as the JAX function returns its updated caches (there the caller
     donates the old ones, so XLA updates them in place as well).
+
+    On a cache whose keys a mesh splits, each rank attends over its slice
+    (the first ``min(pos + 1, T)`` keys of the whole are valid, under both
+    cache rules) by the partial entry of the kernel, or under a plain impl
+    by its plain version, and the slices merge by log-sum-exp.
     """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}")
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k, v = gqa_qkv(params, x, positions, cfg)
     slot = (pos % window) if window else pos
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-    if impl == "kernel":
+    write_slot(cache_k, slot, k[:, 0])
+    write_slot(cache_v, slot, v[:, 0])
+    if split_dims(cache_k, 1):
+        partial = decode_attention_partial if impl == "kernel" else \
+            decode_attention_partial_ref
+        out = split_call(
+            lambda q, k, v, limit: partial(q.contiguous(), k, v, limit=limit),
+            q[:, 0], (cache_k, cache_v), limit=min(pos + 1, cache_k.shape[1]),
+            q_dim=1, group_dim=2, key_dim=1)[:, None]
+    elif impl == "kernel":
         out = local_call(
             lambda q, k, v: decode_attention(q.contiguous(), k, v, pos=pos,
                                              window=window),
             q[:, 0], (cache_k, cache_v), q_dim=1, group_dim=2)[:, None]
-    elif impl in ("torch", "torch_pairs"):
-        out = _attend_torch(q, cache_k, cache_v, pos, slot, window)
     else:
-        raise ValueError(f"unknown attention impl {impl!r}")
+        out = local_call(
+            lambda q, k, v: _attend_torch(q, k, v, pos, slot, window),
+            q, (cache_k, cache_v), q_dim=2, group_dim=2)
     proj = torch.einsum("bshk,hkd->bsd", out.to(x.dtype), params["wo"])
     return proj, cache_k, cache_v
 
@@ -402,8 +427,8 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q_nope, q_rope = mla_project_q(params, x, positions, cfg)   # (B,1,H,*)
     c_kv, k_rope = mla_latents(params, x, positions, cfg)   # (B,1,r), (B,1,rd)
-    cache_ckv[:, pos] = c_kv[:, 0].to(cache_ckv.dtype)
-    cache_kr[:, pos] = k_rope[:, 0].to(cache_kr.dtype)
+    write_slot(cache_ckv, pos, c_kv[:, 0])
+    write_slot(cache_kr, pos, k_rope[:, 0])
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])
     s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
     s = s + torch.einsum("bhk,btk->bht", q_rope[:, 0], cache_kr).float()

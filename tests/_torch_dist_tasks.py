@@ -41,6 +41,18 @@ SLOWEST = ("deepseek-v3-671b",)
 PLACED = ("embed", "blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wo",
           "blocks/mlp/wi", "final_ln")
 GQA = dict(B=2, S=64, H=4, Hkv=2, D=32)
+# decode on the GQA trap: a cache of T keys, split 4 ways by --seq-shard's
+# rules on (1, 4); (impl, pos, window): pos in slice 0, a middle slice and
+# the last, and a ring of T slots that has wrapped
+DECODE_T = 16
+DECODE_CASES = [(impl, pos, 0) for impl in ("kernel", "torch")
+                for pos in (2, 9, 15)] + \
+    [(impl, 21, DECODE_T) for impl in ("kernel", "torch")]
+# and split over two mesh dims: the long-context rules' ("pod", "data") on
+# a (2, 2, 1) mesh, the batch whole, the layer's weights split over
+# "fsdp" as given (so q is a pending sum)
+DECODE_CASES_2D = [(impl, 9, 0) for impl in ("kernel", "torch")] + \
+    [("kernel", 21, DECODE_T)]
 
 
 def train_job(arch: str, steps: int, model_axis: int) -> TrainJob:
@@ -91,6 +103,100 @@ def trained(res) -> dict:
     return {"losses": [h["loss"] for h in res["history"]],
             "params": whole(state["params"]),
             "moments": whole({"m": state["opt"]["m"], "v": state["opt"]["v"]})}
+
+
+def decode_inputs(pos: int) -> dict:
+    """numpy inputs of one ``gqa_decode``: the layer's params at the GQA
+    trap's heads (smoke gemma-2b's d_model and head dim), x (B, 1, d), and
+    caches (B, DECODE_T, Hkv, D)."""
+    rng = np.random.default_rng(20 + pos)
+    c, d = GQA, gqa_config().d_model
+    D = gqa_config().head_dim
+    w = lambda *shape: (rng.standard_normal(shape) / np.sqrt(shape[0])
+                        ).astype(np.float32)
+    return {"params": {"wq": w(d, c["H"], D), "wk": w(d, c["Hkv"], D),
+                       "wv": w(d, c["Hkv"], D), "wo": w(c["H"], D, d)},
+            "x": rng.standard_normal((c["B"], 1, d)).astype(np.float32),
+            "cache_k": rng.standard_normal(
+                (c["B"], DECODE_T, c["Hkv"], D)).astype(np.float32),
+            "cache_v": rng.standard_normal(
+                (c["B"], DECODE_T, c["Hkv"], D)).astype(np.float32)}
+
+
+def gqa_config():
+    """Smoke gemma-2b with the GQA trap's heads."""
+    return reduce_for_smoke(get_arch("gemma-2b")).with_(
+        num_heads=GQA["H"], num_kv_heads=GQA["Hkv"])
+
+
+def decode_on(mesh, rules, impl: str, pos: int, window: int) -> dict:
+    """``gqa_decode`` of ``decode_inputs(pos)`` placed by ``rules`` on
+    ``mesh``: the output and caches whole, the caches' placements, and the
+    key rows of this rank's cache shards that the step changed (local
+    index, the shard's global offset)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    inp = decode_inputs(pos)
+    cfg = gqa_config()
+    specs = attn.gqa_specs(cfg)
+
+    def place(a, axes):
+        return distribute(torch.from_numpy(a), mesh, placements_for(
+            spec_for(a.shape, axes, mesh, rules), mesh))
+    params = {n: place(a, specs[n].axes) for n, a in inp["params"].items()}
+    x = place(inp["x"], ("batch", None, None))
+    cax = ("batch", "seq", "heads", None)
+    ck, cv = place(inp["cache_k"], cax), place(inp["cache_v"], cax)
+    before = ck.to_local().clone()
+    with torch.no_grad(), implicit_replication():
+        o, ck, cv = attn.gqa_decode(params, x, ck, cv, pos, cfg,
+                                    window=window, impl=impl)
+    from repro_torch.distributed.sharding import _local_range
+    local = ck.to_local()
+    offset = _local_range(ck, 1)[0]
+    changed = (local != before).flatten(2).any(-1).any(0)
+    return {"out": o.full_tensor().numpy(), "cache_k": ck.full_tensor().numpy(),
+            "cache_v": cv.full_tensor().numpy(),
+            "placements": str(ck.placements),
+            "changed": (torch.nonzero(changed).flatten().tolist(), offset)}
+
+
+def mla_inputs(pos: int) -> dict:
+    """numpy inputs of one ``mla_decode`` at smoke deepseek-v3's widths:
+    the layer's params, x (B, 1, d) and the latent caches (B, DECODE_T, r)
+    and (B, DECODE_T, rope)."""
+    from repro_torch.models.attention import mla_specs
+    cfg = reduce_for_smoke(get_arch("deepseek-v3-671b"))
+    rng = np.random.default_rng(40 + pos)
+    B, m = GQA["B"], cfg.mla
+    return {"params": {n: (rng.standard_normal(s.shape) / np.sqrt(s.shape[0])
+                           ).astype(np.float32)
+                       for n, s in mla_specs(cfg).items()},
+            "x": rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32),
+            "ckv": rng.standard_normal(
+                (B, DECODE_T, m.kv_lora_rank)).astype(np.float32),
+            "kr": rng.standard_normal(
+                (B, DECODE_T, m.rope_head_dim)).astype(np.float32)}
+
+
+def mla_decode_on(mesh, rules, pos: int) -> dict:
+    """``mla_decode`` of ``mla_inputs(pos)`` placed by ``rules``: the output
+    and the latent caches whole, and their placements."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    cfg = reduce_for_smoke(get_arch("deepseek-v3-671b"))
+    inp = mla_inputs(pos)
+    specs = attn.mla_specs(cfg)
+
+    def place(a, axes):
+        return distribute(torch.from_numpy(a), mesh, placements_for(
+            spec_for(a.shape, axes, mesh, rules), mesh))
+    params = {n: place(a, specs[n].axes) for n, a in inp["params"].items()}
+    x = place(inp["x"], ("batch", None, None))
+    ckv, kr = (place(inp[n], ("batch", "seq", None)) for n in ("ckv", "kr"))
+    with torch.no_grad(), implicit_replication():
+        o, ckv, kr = attn.mla_decode(params, x, ckv, kr, pos, cfg)
+    return {"out": o.full_tensor().numpy(), "ckv": ckv.full_tensor().numpy(),
+            "kr": kr.full_tensor().numpy(), "placements": str(ckv.placements)}
 
 
 def gqa_inputs():
@@ -151,6 +257,31 @@ def task_world4(rank, out, store_dir):
                   "out": o.full_tensor().detach().numpy(),
                   "dq": dq.grad.full_tensor().numpy(),
                   "dk": dk.grad.full_tensor().numpy()}
+    # the plain impls on the same trap, forward and gradients
+    out["gqa_plain"] = {}
+    for impl in ("torch", "torch_pairs"):
+        a, b, c = (t.detach().requires_grad_() for t in (dq, dk, dv))
+        o = attn.gqa_attend(a, b, c, cfg_g, impl=impl)
+        (o * o).sum().backward()
+        out["gqa_plain"][impl] = {
+            "out": o.full_tensor().detach().numpy(),
+            **{f"d{n}": t.grad.full_tensor().numpy()
+               for n, t in (("q", a), ("k", b), ("v", c))}}
+    # decode on the trap: the KV heads whole (the decode rules), and the
+    # cache split over its keys (--seq-shard's rules)
+    out["decode"] = {(impl, 9, 0, "heads"): decode_on(
+        mesh, make_rules("decode"), impl, 9, 0) for impl in ("kernel", "torch")}
+    seq = make_rules("decode", seq_shard="model")
+    for impl, pos, window in DECODE_CASES:
+        out["decode"][impl, pos, window, "keys"] = decode_on(
+            mesh, seq, impl, pos, window)
+    out["mla_decode"] = mla_decode_on(mesh, seq, 9)
+    mesh3 = init_device_mesh("cpu", (2, 2, 1),
+                             mesh_dim_names=("pod", "data", "model"))
+    long = make_rules("decode", long_context=True)
+    for impl, pos, window in DECODE_CASES_2D:
+        out["decode"][impl, pos, window, "keys_2d"] = decode_on(
+            mesh3, long, impl, pos, window)
 
     # every family at data 4 / model 1 for one step
     out["data4"] = {arch: trained(Trainer(train_job(arch, 1, 1))

@@ -180,13 +180,45 @@ def _counted(cfg, shape, mesh, fake: bool) -> dict:
 
 def task_fake_vs_real() -> dict:
     """The counter over one smoke train step on fake and on real tensors,
-    with no mesh and on a fake (2, 2) group."""
+    with no mesh and on a fake (2, 2) group; and smoke phi-3-vision's on
+    the group, whose attention's batch and head splits DTensor merged into
+    one dim it could place only by reading values."""
     cfg = reduce_for_smoke(get_arch("gemma-2b"))
     out = {"none": {kind: _counted(cfg, SMOKE_TRAIN, None, kind == "fake")
                     for kind in ("fake", "real")}}
     mesh = fake_mesh((2, 2))
     out["mesh"] = {kind: _counted(cfg, SMOKE_TRAIN, mesh, kind == "fake")
                    for kind in ("fake", "real")}
+    phi = reduce_for_smoke(get_arch("phi-3-vision-4.2b"))
+    out["phi3_mesh"] = {kind: _counted(phi, SMOKE_TRAIN, mesh, kind == "fake")
+                        for kind in ("fake", "real")}
+    return out
+
+
+# decode on a key-split cache: smoke qwen2-72b with two KV heads, which
+# the decode rules split over "model" and --seq-shard's leave whole
+SEQ_SHAPE = ShapeConfig("seq", 64, 4, "decode")
+SEQ_KV_HEADS = 2
+
+
+def task_seq_shard() -> dict:
+    """A smoke decode step on the fake (2, 2) group under the decode rules
+    and under --seq-shard's (the cache's keys split over "model"): the
+    collectives each sends and the per-device peak."""
+    from repro_torch.launch.steps import trace_cell
+    mesh = fake_mesh((2, 2))
+    cfg = reduce_for_smoke(get_arch("qwen2-72b")).with_(
+        num_kv_heads=SEQ_KV_HEADS)
+    out = {}
+    for name, seq in (("default", False), ("seq_shard", True)):
+        costs, memory, _, rules = trace_cell(
+            cfg.with_(seq_shard_attn=seq), SEQ_SHAPE, mesh)
+        out[name] = {"collective_by_kind": costs.collective_by_kind,
+                     "kernel_calls": costs.kernel_calls,
+                     "peak_bytes": memory["peak_bytes"],
+                     "seq_rule": rules["seq"]}
+    out["cfg"] = [cfg.num_layers, cfg.num_heads, cfg.head_dim,
+                  SEQ_SHAPE.global_batch]
     return out
 
 
@@ -290,6 +322,7 @@ TASKS = {"bytes_single": lambda: task_bytes(False),
          "bytes_multi": lambda: task_bytes(True),
          "abstract": task_abstract, "deepseek": task_deepseek,
          "fake_vs_real": task_fake_vs_real, "allreduce": task_allreduce,
+         "seq_shard": task_seq_shard,
          "prefill_mesh": task_prefill_mesh, "mesh_share": task_mesh_share}
 
 

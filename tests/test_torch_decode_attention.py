@@ -23,8 +23,11 @@ import torch
 
 from repro.kernels.decode_attention import decode_attention as jax_decode_attention
 from repro.kernels.decode_attention.ref import ref_decode_attention
+from repro_torch.distributed.sharding import merge_partials, slice_limit
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import decode_attention, decode_attention_ref, ops
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_partial,
+                                                  decode_attention_ref, ops)
 from repro_torch.kernels.decode_attention.ops import MAX_SPLIT, plan
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -63,6 +66,94 @@ def test_plain_version_matches_jax(dtype, B, H, Hkv, D, T, pos, window, bt):
     for want in (want_ref, want_kernel):
         np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                    atol=TOL[dtype], rtol=TOL[dtype])
+
+
+def _slice_partials(q, k, v, pos, n):
+    """The partial entry on each of ``n`` equal slices of the caches, each
+    with its share of the ``min(pos + 1, T)`` valid keys (none, some or
+    all), as the ranks of a key-split mesh call it -> stacked (outs, lses)
+    and the limits."""
+    T = k.shape[1]
+    T_loc, valid = T // n, min(pos + 1, T)
+    outs, lses, limits = [], [], []
+    for r in range(n):
+        limit = slice_limit(valid, r * T_loc, T_loc)
+        sl = slice(r * T_loc, (r + 1) * T_loc)
+        out, lse = decode_attention_partial(q, k[:, sl], v[:, sl],
+                                            limit=limit)
+        assert out.dtype == q.dtype and lse.dtype == torch.float32
+        outs.append(out)
+        lses.append(lse)
+        limits.append(limit)
+    return torch.stack(outs), torch.stack(lses), limits
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,D,T,pos,window,bt", SWEEP)
+def test_partials_of_every_split_merge_to_jax(dtype, B, H, Hkv, D, T, pos,
+                                              window, bt):
+    """The plain partial over 1, 2, 4, 8 and 16 slices of the cache (some
+    slices empty when pos is early, one partly valid; the ring past T is
+    all valid): each slice's lse is the log-sum-exp of its scaled scores,
+    and the slices merged by log-sum-exp give the whole cache's decode,
+    held against the plain version and JAX's kernel in interpret mode."""
+    arrays = _inputs(B, H, Hkv, D, T, seed=4)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in arrays)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrays)
+    want_kernel = np.asarray(jax_decode_attention(
+        jq, jk, jv, pos=jnp.int32(pos), window=window, block_t=bt,
+        interpret=True), np.float32)
+    want_plain = decode_attention_ref(tq, tk, tv, pos=pos,
+                                      window=window).float().numpy()
+    q64, k64 = (t.double().numpy() for t in (tq, tk))
+    scores = np.einsum("bgnd,btgd->bgnt", q64.reshape(B, Hkv, H // Hkv, D),
+                       k64) / np.sqrt(D)
+    decode_attention.launches = 0
+    for n in (1, 2, 4, 8, 16):
+        outs, lses, limits = _slice_partials(tq, tk, tv, pos, n)
+        assert sum(limits) == min(pos + 1, T)
+        for r, limit in enumerate(limits):
+            s = scores[..., r * (T // n):r * (T // n) + limit]
+            want_lse = np.log(np.exp(s).sum(-1)).reshape(B, H) if limit \
+                else np.full((B, H), -np.inf)
+            np.testing.assert_allclose(lses[r].numpy(), want_lse, rtol=1e-5,
+                                       atol=1e-5)
+            if not limit:
+                assert not outs[r].any()
+        got = merge_partials(outs, lses).numpy()
+        for want in (want_plain, want_kernel):
+            np.testing.assert_allclose(got, want, atol=TOL[dtype],
+                                       rtol=TOL[dtype], err_msg=f"{n} slices")
+    assert decode_attention.launches == 0      # the CPU runs no kernel
+
+
+def test_partial_of_an_empty_slice_is_zeros_and_minus_inf():
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 4, 2, 32, 8))
+    out, lse = decode_attention_partial(q, k, v, limit=0)
+    assert out.shape == (2, 4, 32) and not out.any()
+    assert lse.shape == (2, 4) and bool((lse == -math.inf).all())
+    with pytest.raises(ValueError, match="limit"):
+        decode_attention_partial(q, k, v, limit=9)
+    with pytest.raises(ValueError, match="limit"):
+        decode_attention_partial(q, k, v, limit=-1)
+
+
+def test_launch_arguments_mirror_the_cuda_source(fake_toolchain):
+    """The C entry point's parameters, in order, are what ``ops._bind``
+    declares: the lse pointer after the partials' scratch; and the bf16
+    route converts its log2 max by ln 2."""
+    src = ops.SOURCE.read_text()
+    sig = re.search(r'extern "C" int decode_attention_launch\(([^)]*)\)',
+                    src).group(1)
+    params = [" ".join(p.split()) for p in sig.split(",")]
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_float if p.startswith("float ") else ctypes.c_int
+             for p in params]
+    names = [re.sub(r"^.*[ *]", "", p) for p in params]
+    assert names[5:8] == ["part_acc", "part_ml", "lse"]
+    assert ops.build().decode_attention_launch.argtypes == kinds
+    ln2 = float(re.search(r"constexpr float kLn2 = ([\d.]+)f;", src).group(1))
+    assert ln2 == pytest.approx(math.log(2), rel=1e-7)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -186,7 +277,7 @@ def test_second_build_reads_no_source(fake_toolchain, monkeypatch):
     lib = ops.build()
     assert len(fake_toolchain) == 1
     fn = lib.decode_attention_launch
-    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 18
+    assert fn.restype is ctypes.c_int and len(fn.argtypes) == 19
     assert Path(lib.path) == ops.library_path()
 
     def no_read(self, *args, **kwargs):

@@ -305,6 +305,145 @@ def test_gqa_kernel_call_on_a_model_axis_wider_than_the_kv_heads(world4):
     assert _close(gqa["dk"], k.grad.numpy(), 1e-5)
 
 
+def _jax_cfg():
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs import reduce_for_smoke as jax_reduce
+    return jax_reduce(jax_get_arch("gemma-2b")).with_(
+        num_heads=tasks.GQA["H"], num_kv_heads=tasks.GQA["Hkv"])
+
+
+@pytest.mark.parametrize("impl", ["torch", "torch_pairs"])
+def test_gqa_plain_impls_on_a_model_axis_wider_than_the_kv_heads(world4,
+                                                                 impl):
+    """The plain impls on 4 ranks at H=4, Hkv=2 (they split q's heads into
+    (Hkv, G) and raised on the unevenly sharded dim): forward and gradients
+    against one process and JAX's ``xla``/``xla_pairs`` branch."""
+    import jax
+
+    from repro.models import attention as jattn
+    got = world4[0][0]["gqa_plain"][impl]
+    q, k, v = tasks.gqa_inputs()
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    o = attn.gqa_attend(q, k, v, tasks.gqa_config(), impl=impl)
+    (o * o).sum().backward()
+    jimpl = impl.replace("torch", "xla")
+
+    def loss(q, k, v):
+        o = jattn.gqa_attend(q, k, v, _jax_cfg(), impl=jimpl)
+        return (o * o).sum(), o
+    (_, jo), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        *(jnp.asarray(t.detach().numpy()) for t in (q, k, v)))
+    for want, grads in ((o.detach().numpy(), (q.grad, k.grad, v.grad)),
+                        (np.asarray(jo), jgrads)):
+        np.testing.assert_allclose(got["out"], want, rtol=2e-5, atol=2e-5)
+        for name, g in zip(("dq", "dk", "dv"), grads):
+            assert _close(got[name], np.asarray(g), TOL), (impl, name)
+
+
+def _jax_decode(pos: int, window: int):
+    from repro.models import attention as jattn
+    inp = tasks.decode_inputs(pos)
+    out, ck, cv = jattn.gqa_decode(
+        {n: jnp.asarray(a) for n, a in inp["params"].items()},
+        jnp.asarray(inp["x"]), jnp.asarray(inp["cache_k"]),
+        jnp.asarray(inp["cache_v"]), jnp.int32(pos), _jax_cfg(),
+        window=window, impl="xla")
+    return np.asarray(out), np.asarray(ck), np.asarray(cv)
+
+
+def _one_process_decode(impl: str, pos: int, window: int):
+    inp = tasks.decode_inputs(pos)
+    t = {n: torch.from_numpy(a) for n, a in inp["params"].items()}
+    ck, cv = (torch.from_numpy(inp[n].copy()) for n in ("cache_k", "cache_v"))
+    with torch.no_grad():
+        out, ck, cv = attn.gqa_decode(t, torch.from_numpy(inp["x"]), ck, cv,
+                                      pos, tasks.gqa_config(), window=window,
+                                      impl=impl)
+    return out.numpy(), ck.numpy(), cv.numpy()
+
+
+def _same_decode(got, impl, pos, window):
+    """A meshed decode's output and caches against one process and JAX's
+    ``xla`` branch, at fp32 ``TOL`` 2e-5."""
+    for want in (_one_process_decode(impl, pos, window),
+                 _jax_decode(pos, window)):
+        for name, w in zip(("out", "cache_k", "cache_v"), want):
+            np.testing.assert_allclose(got[name], w, rtol=2e-5, atol=2e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "torch"])
+def test_gqa_decode_on_a_model_axis_wider_than_the_kv_heads(world4, impl):
+    """Decode's plain path on the GQA trap raised as the attend did."""
+    for rank in world4[0]:
+        got = rank["decode"][impl, 9, 0, "heads"]
+        assert "Shard(dim=2)" not in got["placements"]
+    _same_decode(world4[0][0]["decode"][impl, 9, 0, "heads"], impl, 9, 0)
+
+
+@pytest.mark.parametrize("impl,pos,window", tasks.DECODE_CASES)
+def test_gqa_decode_on_a_key_split_cache(world4, impl, pos, window):
+    """``--seq-shard``'s rules split the cache's keys 4 ways: each rank's
+    partial over its slice, merged by log-sum-exp, gives the whole
+    cache's decode; only the rank that holds the slot writes it."""
+    ranks = [r["decode"][impl, pos, window, "keys"] for r in world4[0]]
+    T_loc = tasks.DECODE_T // 4
+    slot = pos % window if window else pos
+    for rank in ranks:
+        assert rank["placements"] == "(Replicate(), Shard(dim=1))"
+        changed, offset = rank["changed"]
+        owner = offset <= slot < offset + T_loc
+        assert changed == ([slot - offset] if owner else []), (rank, slot)
+    assert sorted(r["changed"][1] for r in ranks) == [0, 4, 8, 12]
+    _same_decode(ranks[0], impl, pos, window)
+
+
+def test_mla_decode_writes_a_key_split_latent_cache(world4):
+    """MLA's latent caches split over their keys by --seq-shard's rules:
+    the token's latents land in the shard that holds ``pos`` (DTensor's
+    ``cache[:, pos] = ...`` wrote into a gathered copy, and the shards kept
+    their old rows), and the output matches one process and JAX."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs import reduce_for_smoke as jax_reduce
+    from repro.models import attention as jattn
+    got = world4[0][0]["mla_decode"]
+    assert got["placements"] == "(Replicate(), Shard(dim=1))"
+    inp = tasks.mla_inputs(9)
+    cfg = tasks.reduce_for_smoke(tasks.get_arch("deepseek-v3-671b"))
+    ckv, kr = (torch.from_numpy(inp[n].copy()) for n in ("ckv", "kr"))
+    with torch.no_grad():
+        one = attn.mla_decode({n: torch.from_numpy(a) for n, a in
+                               inp["params"].items()},
+                              torch.from_numpy(inp["x"]), ckv, kr, 9, cfg)
+    jax_out = jattn.mla_decode(
+        {n: jnp.asarray(a) for n, a in inp["params"].items()},
+        jnp.asarray(inp["x"]), jnp.asarray(inp["ckv"]), jnp.asarray(inp["kr"]),
+        jnp.int32(9), jax_reduce(jax_get_arch("deepseek-v3-671b")))
+    for want in ([t.numpy() for t in one], [np.asarray(t) for t in jax_out]):
+        for name, w in zip(("out", "ckv", "kr"), want):
+            np.testing.assert_allclose(got[name], w, rtol=2e-5, atol=2e-5,
+                                       err_msg=name)
+
+
+@pytest.mark.parametrize("impl,pos,window", tasks.DECODE_CASES_2D)
+def test_gqa_decode_on_a_cache_split_over_two_mesh_dims(world4, impl, pos,
+                                                        window):
+    """The long-context rules split the keys over ("pod", "data") on a
+    (2, 2, 1) mesh: the merge runs over both mesh dims, and q arrives as a
+    pending sum (its projection contracts the fsdp-split d_model)."""
+    ranks = [r["decode"][impl, pos, window, "keys_2d"] for r in world4[0]]
+    slot = pos % window if window else pos
+    for rank in ranks:
+        assert rank["placements"] == \
+            "(Shard(dim=1), Shard(dim=1), Replicate())"
+        changed, offset = rank["changed"]
+        owner = offset <= slot < offset + 4
+        assert changed == ([slot - offset] if owner else []), (rank, slot)
+    assert sorted(r["changed"][1] for r in ranks) == [0, 4, 8, 12]
+    _same_decode(ranks[0], impl, pos, window)
+
+
 @pytest.mark.parametrize("arch", tasks.ALL_ARCHS)
 def test_trainer_on_data2_model2_matches_one_process(world4, arch):
     results, ref, _ = world4

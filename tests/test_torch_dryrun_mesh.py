@@ -31,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 TASKS = Path(__file__).resolve().parent / "_torch_dryrun_tasks.py"
 sys.path.insert(0, str(TASKS.parent))
 NAMES = ["bytes_single", "bytes_multi", "abstract", "deepseek",
-         "fake_vs_real", "allreduce", "prefill_mesh", "mesh_share"]
+         "fake_vs_real", "allreduce", "prefill_mesh", "mesh_share",
+         "seq_shard"]
 CELL = ["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
         "--mesh", "single", "--tag", "pytest"]
 TIMEOUT = 600
@@ -165,13 +166,40 @@ def test_smoke_deepseek_train_step_traces_on_fake_tensors(results):
     assert got["state"]["params/moe_blocks/attn/w_uk"] == [3, 32, 2, 32]
 
 
-@pytest.mark.parametrize("where", ["none", "mesh"])
+@pytest.mark.parametrize("where", ["none", "mesh", "phi3_mesh"])
 def test_counts_are_equal_on_fake_and_real_tensors(results, where):
+    """``phi3_mesh``: smoke phi-3-vision under ``attn_impl="torch"`` on
+    (2, 2), which did not trace: DTensor merged the batch split and the
+    head split into one dim, whose ``bmm`` it places only by reading
+    values; the plain impls now run on each rank's shards."""
     got = _get(results, "fake_vs_real")[where]
     assert got["fake"] == got["real"]
     assert got["fake"]["flops"] > 0 and got["fake"]["peak_bytes"] > 0
-    if where == "mesh":
+    if where != "none":
         assert got["fake"]["collective_count"]["reduce-scatter"] > 0
+
+
+def test_decode_on_a_key_split_cache_gathers_no_cache(results):
+    """A smoke decode step on (2, 2) under --seq-shard's rules (the cache's
+    keys split over "model") all-gathers what the decode rules' step does
+    and, each layer, only the new token's q, k and v made whole along the
+    key split; the cache stays in place (it was all-gathered each layer).
+    The merge adds one all-reduce of the lse max and one of the weighted
+    outputs with their weights, (B/data, H) and (B/data, H, D + 1)."""
+    from _torch_dryrun_tasks import SEQ_KV_HEADS
+    got = _get(results, "seq_shard")
+    default, seq = got["default"], got["seq_shard"]
+    assert (default["seq_rule"], seq["seq_rule"]) == (None, "model")
+    L, H, D, B = got["cfg"]
+    B_loc, fp32 = B // 2, 4
+    token = L * B_loc * (H + 2 * SEQ_KV_HEADS) * D * fp32
+    assert seq["collective_by_kind"]["all-gather"] == \
+        default["collective_by_kind"]["all-gather"] + token
+    assert seq["collective_by_kind"]["all-reduce"] == \
+        L * B_loc * H * (1 + D + 1) * fp32
+    assert seq["kernel_calls"] == default["kernel_calls"] == \
+        {"decode_attention": L}
+    assert seq["peak_bytes"] <= default["peak_bytes"]
 
 
 def test_collectives_detected_on_sharded_matmul(results):

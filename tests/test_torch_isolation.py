@@ -6,6 +6,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 import repro_torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -49,3 +51,30 @@ def test_no_source_of_the_port_names_jax_or_repro():
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 top = words[1].split(".")[0]
                 assert top not in ("jax", "jaxlib", "repro"), (f, line)
+
+
+EXAMPLE = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("example", {path!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_train_lm",
+                                  "torch_serve_batched",
+                                  "torch_resilient_training"])
+def test_importing_a_port_example_loads_no_jax_and_no_repro(name):
+    path = ROOT / "examples" / f"{name}.py"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c",
+                           EXAMPLE.format(path=str(path))],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for line in path.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
