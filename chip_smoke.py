@@ -216,6 +216,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import resource
 import statistics
@@ -243,7 +244,7 @@ from repro_torch.data import (  # noqa: E402
     DeviceFeeder, build_image_dataset, build_token_dataset)
 from repro_torch.distributed import HostFailure  # noqa: E402
 from repro_torch.distributed.sharding import (  # noqa: E402
-    merge_partials, slice_limit)
+    _local_range, merge_partials, slice_limit)
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_partial, decode_attention_partial_ref,
     decode_attention_ref, ops as da_ops)
@@ -1752,32 +1753,16 @@ def dist_restore(ckpt, state) -> dict:
     return {"restore_s": restore_s, "s": time.perf_counter() - t_phase}
 
 
-def key_split_decode(mesh, device: str = "cuda") -> dict:
-    """``gqa_decode`` at ``KEY_SPLIT``'s widths on ``mesh`` (one rank), its
-    caches placed as ``--seq-shard``'s rules place them, with each split the
-    rules name kept on its size-1 mesh dim (``placements_for`` would make it
-    whole): so the key-split route runs, ``split_call`` with the partial
-    entry on ``local_call``'s shards and the merge's all-reduces.  Random
-    bf16 weights and inputs from a seed; per pos (the end, mid-cache,
-    ``SEQ_ONE``), one launch, the output within :func:`_close` at the bf16
-    ``TOL`` of the meshless ``gqa_decode``'s and the caches equal to its ->
-    {launches, max_abs_err}."""
+def _key_split_placements(mesh, shape, axes):
+    """The placements ``--seq-shard``'s rules give a cache of ``shape`` and
+    logical ``axes`` on ``mesh``, with each split the rules name kept on its
+    mesh dim even where that dim has size 1 (``placements_for`` would make
+    it whole there), so that the key-split route runs on any mesh."""
     from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import implicit_replication
 
-    from repro_torch.distributed.sharding import (distribute, make_rules,
-                                                  mesh_axis_names, spec_for)
-    cfg = get_arch(KEY_SPLIT["arch"])
-    B, T = KEY_SPLIT["B"], KEY_SPLIT["T"]
-    Hkv, D = cfg.num_kv_heads, cfg.head_dim
-    gen = torch.Generator(device).manual_seed(11)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
-    params = {n: (rand(*sp.shape) / math.sqrt(sp.shape[0])).to(torch.bfloat16)
-              for n, sp in attn_lib.gqa_specs(cfg).items()}
-    x = rand(B, 1, cfg.d_model).to(torch.bfloat16)
-    cache = [rand(B, T, Hkv, D).to(torch.bfloat16) for _ in range(2)]
-    spec = spec_for((B, T, Hkv, D), ("batch", "seq", "heads", None), mesh,
-                    make_rules("decode", seq_shard="model"))
+    from repro_torch.distributed.sharding import (make_rules, mesh_axis_names,
+                                                  spec_for)
+    spec = spec_for(shape, axes, mesh, make_rules("decode", seq_shard="model"))
     names = mesh_axis_names(mesh)
     pl = [Replicate()] * len(names)
     for dim, entry in enumerate(spec):
@@ -1786,6 +1771,46 @@ def key_split_decode(mesh, device: str = "cuda") -> dict:
     if Shard(1) not in pl:
         raise AssertionError(f"--seq-shard's rules leave the keys whole: "
                              f"{spec}")
+    return pl
+
+
+def _every_rank(ok: bool, device) -> bool:
+    """``ok`` on every rank of the process group (``ok`` without one): a
+    check that fails on one rank fails on all, so that none goes on to
+    collectives the others never join."""
+    import torch.distributed as tdist
+    if not tdist.is_initialized():
+        return bool(ok)
+    flag = torch.tensor([int(bool(ok))], device=device)
+    tdist.all_reduce(flag, op=tdist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def key_split_decode(mesh, device: str = "cuda", T: int = KEY_SPLIT["T"]
+                     ) -> dict:
+    """``gqa_decode`` at ``KEY_SPLIT``'s widths on ``mesh`` (one rank or
+    more), its caches placed as ``--seq-shard``'s rules place them
+    (:func:`_key_split_placements`): so the key-split route runs,
+    ``split_call`` with the partial entry on ``local_call``'s shards and the
+    merge's all-reduces.  Random bf16 weights and inputs from a seed, the
+    same on every rank; per pos (the end, mid-cache, ``SEQ_ONE``), one
+    launch on each rank whose slice holds a valid key, the output within :func:`_close` at the bf16 ``TOL`` of
+    the meshless ``gqa_decode``'s on the whole cache and the caches equal
+    to its -> {launches, max_abs_err}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import distribute
+    cfg = get_arch(KEY_SPLIT["arch"])
+    B = KEY_SPLIT["B"]
+    Hkv, D = cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device).manual_seed(11)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    params = {n: (rand(*sp.shape) / math.sqrt(sp.shape[0])).to(torch.bfloat16)
+              for n, sp in attn_lib.gqa_specs(cfg).items()}
+    x = rand(B, 1, cfg.d_model).to(torch.bfloat16)
+    cache = [rand(B, T, Hkv, D).to(torch.bfloat16) for _ in range(2)]
+    pl = _key_split_placements(mesh, (B, T, Hkv, D),
+                               ("batch", "seq", "heads", None))
     launches, err = 0, 0.0
     for pos in (T - 1, T // 2 + SEQ_MID, SEQ_ONE):
         ck, cv = (distribute(c.clone(), mesh, pl) for c in cache)
@@ -1797,18 +1822,75 @@ def key_split_decode(mesh, device: str = "cuda") -> dict:
                 got, ck, cv = attn_lib.gqa_decode(params, x, ck, cv, pos, cfg)
             got = got.full_tensor()
             counts = _counts()
-        _check_counts(counts, {"decode_attention": 1},
-                      f"decode on a key-split cache at pos {pos}")
-        launches += 1
+        # a rank whose slice holds no valid key launches nothing
+        mine = slice_limit(pos + 1, *_local_range(ck, 1))
+        want_launches = int(mine > 0 and torch.device(device).type == "cuda")
+        launches += want_launches
         err = max(err, (got.float() - want.float()).abs().max().item())
-        if not (_close(got.float(), want.float(), TOL[torch.bfloat16])
-                and torch.equal(ck.full_tensor(), wk)
-                and torch.equal(cv.full_tensor(), wv)):
-            raise AssertionError(f"decode on a key-split cache at pos {pos} "
-                                 f"differs from the meshless decode by {err}")
+        ok = counts == {**dict.fromkeys(COUNTED, 0),
+                        "decode_attention": want_launches} and \
+            _close(got.float(), want.float(), TOL[torch.bfloat16]) and \
+            torch.equal(ck.full_tensor(), wk) and \
+            torch.equal(cv.full_tensor(), wv)
+        if not _every_rank(ok, device):
+            raise AssertionError(f"decode on a key-split cache at pos {pos}: "
+                                 f"launches {counts} (want {want_launches} "
+                                 f"here), off the meshless decode by {err}")
         del ck, cv, wk, wv, got, want
     return {"launches": launches, "max_abs_err": err,
             "placements": str(tuple(pl))}
+
+
+def mla_key_split_decode(mesh, device: str = "cuda",
+                         T: int = MLA_DECODE["T"]) -> dict:
+    """One ``mla_decode`` layer at full deepseek-v3 widths on ``mesh``, in
+    fp32, its latent caches (B=4, T) placed as ``--seq-shard``'s rules place
+    them (:func:`_key_split_placements`): each rank's absorbed partial over
+    its slice (``mla_decode_partial``), merged by log-sum-exp before W_uv.
+    Random weights and inputs from a seed, the same on every rank; per pos
+    (the end, mid-cache, ``SEQ_ONE``) the output within :func:`_close` at
+    the fp32 ``TOL`` of the meshless ``mla_decode``'s on the whole caches,
+    the caches equal to its, and no kernel launched (MLA decodes in plain
+    ops, as in JAX) -> {max_abs_err, placements}."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.distributed.sharding import distribute
+    cfg = get_arch(DEEPSEEK)
+    m, B = cfg.mla, MLA_DECODE["B"]
+    gen = torch.Generator(device).manual_seed(12)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=device)
+    params = {n: rand(*sp.shape) / math.sqrt(sp.shape[0])
+              for n, sp in attn_lib.mla_specs(cfg).items()}
+    params.update({n: torch.ones(sp.shape, device=device) for n, sp in
+                   attn_lib.mla_specs(cfg).items() if n.endswith("_norm")})
+    x = rand(B, 1, cfg.d_model)
+    cache = [rand(B, T, m.kv_lora_rank), rand(B, T, m.rope_head_dim)]
+    pl = _key_split_placements(mesh, (B, T, m.kv_lora_rank),
+                               ("batch", "seq", None))
+    err = 0.0
+    for pos in (T - 1, T // 2 + SEQ_MID, SEQ_ONE):
+        ckv, kr = (distribute(c.clone(), mesh, pl) for c in cache)
+        wckv, wkr = (c.clone() for c in cache)
+        with torch.no_grad():
+            want, wckv, wkr = attn_lib.mla_decode(params, x, wckv, wkr, pos,
+                                                  cfg)
+            _reset_counts()
+            with implicit_replication():
+                got, ckv, kr = attn_lib.mla_decode(params, x, ckv, kr, pos,
+                                                   cfg)
+            got = got.full_tensor()
+            counts = _counts()
+        err = max(err, (got - want).abs().max().item())
+        ok = not any(counts.values()) and \
+            _close(got, want, TOL[torch.float32]) and \
+            torch.equal(ckv.full_tensor(), wckv) and \
+            torch.equal(kr.full_tensor(), wkr)
+        if not _every_rank(ok, device):
+            raise AssertionError(f"mla decode on a key-split cache at pos "
+                                 f"{pos}: launches {counts}, off the meshless "
+                                 f"decode by {err}")
+        del ckv, kr, wckv, wkr, got, want
+    return {"max_abs_err": err, "placements": str(tuple(pl)), "T": T}
 
 
 def dist(card: str, train_ref=None, served=None, restored=None):
@@ -1825,7 +1907,8 @@ def dist(card: str, train_ref=None, served=None, restored=None):
     leaves within 1e-6 of each leaf's largest value; then
     ``Server.generate`` on the mesh from the served params' seed, whose
     greedy tokens must be ``[serve]``'s (``served``), through the decode
-    kernel; and :func:`key_split_decode` on the mesh.  Without
+    kernel; :func:`key_split_decode` and :func:`mla_key_split_decode` on
+    the mesh.  Without
     ``train_ref``, ``restored`` and ``served``, fresh meshless runs make
     them -> (flash launches, decode launches of the Trainer and Server,
     :func:`key_split_decode`'s result)."""
@@ -1922,6 +2005,7 @@ def dist(card: str, train_ref=None, served=None, restored=None):
         del srv
         torch.cuda.empty_cache()
         key_split = key_split_decode(mesh)
+        mla_key_split = mla_key_split_decode(mesh)
     torch.cuda.empty_cache()
     # the meshed step's peak (the vocab-parallel loss on DTensors) against
     # the meshless one's, each over Trainer.run
@@ -1936,9 +2020,34 @@ def dist(card: str, train_ref=None, served=None, restored=None):
          wire_bytes=wire, restore_exact=True,
          restore_s=restored["restore_s"], tokens_equal=True,
          tokens_per_s=tok_s, key_split_decode=key_split,
+         mla_key_split_decode=mla_key_split,
          phase_s=time.perf_counter() - t_phase + restored["s"])
     return (counts["flash_attention"], serve_counts["decode_attention"],
             key_split)
+
+
+def torchrun_train(card: str) -> dict:
+    """``[torchrun]``: ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1 -m repro_torch.launch.train`` for 2 smoke steps, the
+    launch path of ``scripts/mesh_smoke.py`` on one card: the process group
+    from torchrun's variables (NCCL), the rank's card, a (1, 1) mesh; the
+    command exits 0 and prints its one "done:" line with that mesh."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--steps", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=300)
+    wall_s = time.perf_counter() - t0
+    done = [ln for ln in proc.stdout.splitlines() if ln.startswith("done:")]
+    if proc.returncode != 0 or len(done) != 1 or \
+            not done[0].endswith("mesh=(1, 1)"):
+        raise AssertionError(f"[torchrun] rc {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    _say("torchrun", card=card, command=" ".join(cmd[1:]), wall_s=wall_s,
+         done=done[0])
+    return {"wall_s": wall_s}
 
 
 # ----------------------------------------------------------------- phase 6
@@ -2041,7 +2150,7 @@ def trace_train(trainer, state, batch, card: str, tag: str = "trace_train",
 # the rest of the model (norms, rope, residuals, embeddings, copies)
 TRACE_GROUPS = ("flash", "attention backward (plain)", "MLA attention (plain)",
                 "MTP", "expert GEMMs", "dispatch", "logits and loss",
-                "optimizer", "other GEMMs", "other", "unattributed")
+                "optimizer", "other GEMMs", "nccl", "other", "unattributed")
 # the functions a grouped trace marks with a profiler range of their name
 # (``scope:<name>``), for the time of the trace
 TRACE_SCOPES = ((moe_lib, "moe_apply"), (model_lib.Model, "_dense_block"),
@@ -2094,6 +2203,8 @@ def _enclosing(events) -> dict:
 def _trace_group(kernel: str, names: list) -> str:
     if "flash_fwd" in kernel:
         return "flash"
+    if kernel.startswith("nccl"):           # the collectives across cards
+        return "nccl"
     if any("FlashAttentionBackward" in n for n in names):   # plain recompute
         return "attention backward (plain)"
     if "scope:update" in names or "scope:apply_updates" in names:
@@ -3038,6 +3149,8 @@ def main() -> None:
                                               restored)
     flash_launches += dist_flash
     launches += dist_decode
+    torch.cuda.empty_cache()
+    torchrun_train(card)
     lake = zipf_lake(MAMBA2_JOB, get_arch(MAMBA2_JOB.arch).vocab_size)
     trainer, state, batch, counts = train(card, MAMBA2_JOB, "train_mamba2",
                                           lake)

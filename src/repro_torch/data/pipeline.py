@@ -152,6 +152,9 @@ class DeviceFeeder:
             except BaseException as e:
                 err.append(e)
             finally:
+                close = getattr(self.host_iter, "close", None)
+                if stop.is_set() and close is not None:
+                    close()         # the host iterator's threads stop too
                 put(DONE)
 
         t = threading.Thread(target=producer, daemon=True)
@@ -175,8 +178,11 @@ class DeviceFeeder:
         finally:
             # a consumer that stops early (the iterator closed or dropped)
             # lets the producer go: blocked on a full queue, it would hold
-            # the host iterator, and all that refers to, for ever
+            # the host iterator, and all that refers to, for ever; and waits
+            # for it, so that no thread of the feeder's is still in a torch
+            # call when the process exits
             stop.set()
+            t.join(timeout=60)
 
 
 def local_slice(a: np.ndarray, placements, mesh) -> np.ndarray:

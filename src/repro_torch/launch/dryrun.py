@@ -18,14 +18,21 @@ allocated.
 Results land in ``experiments/dryrun_torch/*.json`` (``--out`` elsewhere),
 from which ``launch/report.py`` renders its tables.
 
+A host's cards count the same way: ``--mesh 2x2`` (any ``DxM``) traces the
+cell on a fake (data, model) group of that shape, and ``--batch`` and
+``--seq-len`` cut the shape to a run that fits them (``scripts/
+mesh_smoke.py`` holds such counts against four H100s).
+
 Usage:
     python -m repro_torch.launch.dryrun --arch granite-moe-1b-a400m --shape train_4k --mesh single
+    python -m repro_torch.launch.dryrun --arch gemma-2b --shape train_4k --mesh 2x2 --batch 4 --seq-len 1024
     python -m repro_torch.launch.dryrun --all [--mesh both] [--jobs 4]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,7 +47,11 @@ OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 def run_cell(arch: str, shape: str, mesh_kind: str, *,
              attn_impl: str = "kernel", microbatches: int = 1,
              grad_compress: bool = False, fsdp=None, remat=None,
-             seq_shard: bool = False, tag: str = "") -> dict:
+             seq_shard: bool = False, tag: str = "", batch=None,
+             seq_len=None) -> dict:
+    """One cell.  ``mesh_kind``: "single" (16, 16), "multi" (2, 16, 16), or
+    "DxM", a (data, model) mesh of that shape; ``batch`` and ``seq_len``
+    replace the shape's global batch and sequence length."""
     from repro_torch.configs import ARCHS, SHAPES, cell_is_runnable
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.roofline import (Roofline, active_param_count,
@@ -52,10 +63,15 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
     if seq_shard:
         cfg = cfg.with_(seq_shard_attn=True)
     shape_cfg = SHAPES[shape]
+    if batch is not None or seq_len is not None:
+        shape_cfg = dataclasses.replace(
+            shape_cfg, global_batch=batch or shape_cfg.global_batch,
+            seq_len=seq_len or shape_cfg.seq_len)
     if not cell_is_runnable(arch, shape):
         return {"arch": arch, "shape": shape, "mesh": mesh_kind,
                 "status": "SKIP(full-attention)"}
-    mesh = make_fake_mesh(multi_pod=(mesh_kind == "multi"))
+    mesh = make_fake_mesh(multi_pod=(mesh_kind == "multi"),
+                          shape=_host_shape(mesh_kind))
     chips = mesh.size()
     t0 = time.time()
     costs, memory, model, _ = trace_cell(
@@ -77,6 +93,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
     return {
         "arch": arch, "shape": shape, "mesh": mesh_kind, "status": "OK",
         "chips": chips, "kind": shape_cfg.kind,
+        "batch": shape_cfg.global_batch, "seq_len": shape_cfg.seq_len,
         "params_total": count_params(model.param_specs()),
         "params_active": n_active,
         "trace_s": round(trace_s, 1),
@@ -90,6 +107,13 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
                   "remat": remat},
         "tag": tag,
     }
+
+
+def _host_shape(mesh_kind: str):
+    """(data, model) of a "DxM" mesh kind; None for "single" and "multi"."""
+    if mesh_kind in ("single", "multi"):
+        return None
+    return tuple(int(n) for n in mesh_kind.split("x"))
 
 
 def cell_filename(arch: str, shape: str, mesh_kind: str, tag: str = "",
@@ -153,7 +177,9 @@ def main() -> int:
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--mesh", default="single",
-                    choices=["single", "multi", "both"])
+                    help="single | multi | both | DxM (a host's cards)")
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--attn-impl", default="kernel")
     ap.add_argument("--microbatches", type=int, default=1)
@@ -179,7 +205,8 @@ def main() -> int:
                           microbatches=args.microbatches,
                           grad_compress=args.grad_compress,
                           fsdp=fsdp, remat=args.remat,
-                          seq_shard=args.seq_shard, tag=args.tag)
+                          seq_shard=args.seq_shard, tag=args.tag,
+                          batch=args.batch, seq_len=args.seq_len)
     except Exception:
         traceback.print_exc()
         result = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,

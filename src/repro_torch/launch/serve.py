@@ -18,12 +18,16 @@ The server runs on the card unless the caller names another device; with no
 CUDA device present and none named, it raises.
 
 With a process group it serves on a ``DeviceMesh`` of (world // model_axis,
-model_axis) as (data, model), by the decode rules: the parameters and the
-cache are DTensors placed by their specs, the kernels run on each rank's
-shards, and the logits are gathered whole before sampling, so every rank
-generates the same tokens.
+model_axis) as (data, model), by the decode rules, each rank on its own
+card: the parameters and the cache are DTensors placed by their specs, the
+kernels run on each rank's shards, and the logits are gathered whole before
+sampling, so every rank generates the same tokens.  The CLI makes the
+process group itself when ``torchrun`` starts it
+(``launch.mesh.init_from_env``) and serves on (world, 1), as JAX's
+``make_local_mesh`` does with its default ``model_axis``.
 
 CLI:  python -m repro_torch.launch.serve --arch gemma-2b --smoke --tokens 16
+      torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.serve
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCHS, get_arch, reduce_for_smoke
 from repro_torch.distributed.sharding import (make_rules, make_shard_fn,
                                               place_tree, replicate,
                                               sharding_for_specs)
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import (destroy, init_from_env,
+                                     make_local_mesh, rank_device)
 from repro_torch.models.model import build_model
 
 
@@ -64,7 +70,7 @@ class Server:
             raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                                "the CPU")
         self.job = job
-        self.device = torch.device(device or "cuda")
+        self.device = rank_device(device)
         cfg = get_arch(job.arch)
         if job.smoke:
             cfg = reduce_for_smoke(cfg)
@@ -166,9 +172,18 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     args = ap.parse_args()
+    try:
+        _main(args, init_from_env(args.device))
+    finally:
+        destroy()
+
+
+def _main(args, device: Optional[str]) -> None:
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     job = ServeJob(arch=args.arch, smoke=args.smoke, batch=args.batch,
                    prompt_len=args.prompt_len, max_new_tokens=args.tokens,
-                   temperature=args.temperature, device=args.device)
+                   temperature=args.temperature, device=device)
     server = Server(job)
     rng = np.random.default_rng(0)
     if job.smoke and server.cfg.num_codebooks:
@@ -177,10 +192,12 @@ def main() -> None:
     prompts = rng.integers(0, server.cfg.vocab_size,
                            (job.batch, job.prompt_len)).astype(np.int32)
     out = server.generate(prompts)
-    print(f"generated {out.shape} | decode throughput "
-          f"{server.throughput():.1f} tok/s "
-          f"(batch {job.batch}, {server.device})")
-    print("sample ids:", out[0, job.prompt_len:job.prompt_len + 12].tolist())
+    mesh = "" if server.mesh is None else \
+        f", mesh {tuple(server.mesh.shape)}"
+    say(f"generated {out.shape} | decode throughput "
+        f"{server.throughput():.1f} tok/s "
+        f"(batch {job.batch}, {server.device}{mesh})")
+    say("sample ids:", out[0, job.prompt_len:job.prompt_len + 12].tolist())
 
 
 if __name__ == "__main__":

@@ -7,8 +7,10 @@ runs on a ``DeviceMesh`` of (world // model_axis, model_axis) as (data,
 model): the state is placed by the train rules, each rank builds the same
 global batch from the lake and keeps its slice, and the step runs on
 DTensors (``launch.steps``).  Only rank 0 logs and writes checkpoints; every
-rank returns the same losses.  Without one, it runs in one process on plain
-tensors, as before; ``model_axis`` must then be 1.
+rank returns the same losses.  Each rank runs on its own card.  Without one,
+it runs in one process on plain tensors, as before; ``model_axis`` must then
+be 1.  The CLI makes the process group itself when ``torchrun`` starts it
+(``launch.mesh.init_from_env``): one process a card, NCCL between them.
 
 It trains the dense, audio, vlm and moe families (deepseek-v3 with its
 multi-token prediction loss), mamba2 (ssm) and zamba2 (hybrid).  The trainer
@@ -22,6 +24,8 @@ CLI:
     python -m repro_torch.launch.train --arch gemma-2b --steps 20
     python -m repro_torch.launch.train --device cpu --steps 20 \\
         --grad-compress --fail-at 12 --checkpoint-every 5
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \\
+        --model-axis 2 --steps 20        # a (2, 2) mesh of four cards
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ from repro_torch.distributed import (FailureInjector, StragglerDetector,
                                      run_resilient)
 from repro_torch.distributed.sharding import (batch_specs, make_rules,
                                               make_shard_fn)
-from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.launch.mesh import (destroy, init_from_env,
+                                     make_local_mesh, rank_device)
 from repro_torch.launch.steps import (init_state, make_train_step,
                                       state_placements, train_state_specs)
 from repro_torch.models.model import build_model
@@ -75,6 +80,8 @@ class TrainJob:
     model_axis: int = 1
     log_every: int = 5
     device: Optional[str] = None    # None: the CUDA device
+    # the lake loader's workers; None: 4, or 1 on a world of several ranks
+    loader_workers: Optional[int] = None
 
 
 class Trainer:
@@ -84,7 +91,7 @@ class Trainer:
             raise RuntimeError("no CUDA device: pass device='cpu' to run on "
                                "the CPU")
         self.job = job
-        self.device = torch.device(job.device or "cuda")
+        self.device = rank_device(job.device)
         cfg = get_arch(job.arch)
         if job.smoke:
             cfg = reduce_for_smoke(cfg)
@@ -126,9 +133,18 @@ class Trainer:
     def _batches(self) -> Iterator[Dict[str, torch.Tensor]]:
         view = (self.data_ds.query(self.job.tql_filter)
                 if self.job.tql_filter else DatasetView.full(self.data_ds))
+        # the loader's shuffle buffer fills in the order its workers finish:
+        # with several, two processes may draw two orders, and ranks that
+        # keep slices of two global batches train on neither; with one,
+        # the order is the seeded plan on every rank
+        workers = self.job.loader_workers
+        if workers is None:
+            several = self.mesh is not None and dist.get_world_size() > 1
+            workers = 1 if several else 4
         batcher = TokenBatcher(view, batch_size=self.job.global_batch,
                                seq_len=self.job.seq_len,
                                shuffle=self.job.shuffle, seed=self.job.seed,
+                               num_workers=workers,
                                num_codebooks=self.cfg.num_codebooks)
 
         def with_extras():
@@ -205,6 +221,7 @@ class Trainer:
             if step % job.checkpoint_every == 0 or step == job.steps:
                 # every rank joins the gather of a DTensor state; rank 0 writes
                 self.ckpt.save(state, step)
+        batches.close()                 # the feeder's threads stopped
         self.ckpt.wait()
         return {"state": state, "final_step": step,
                 "final_loss": self.history[-1]["loss"] if self.history else None,
@@ -226,9 +243,21 @@ def main() -> None:
     ap.add_argument("--fail-at", type=int, nargs="*", default=[])
     ap.add_argument("--tql", default=None)
     ap.add_argument("--model-axis", type=int, default=1)
+    ap.add_argument("--loader-workers", type=int, default=None,
+                    help="lake loader workers; default 4, or 1 under "
+                         "torchrun (every rank draws the same batches)")
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA device")
     args = ap.parse_args()
+    try:
+        _main(args, init_from_env(args.device))
+    finally:
+        destroy()
+
+
+def _main(args, device: Optional[str]) -> None:
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     job = TrainJob(arch=args.arch, smoke=args.smoke, steps=args.steps,
                    global_batch=args.global_batch, seq_len=args.seq_len,
                    microbatches=args.microbatches,
@@ -236,7 +265,8 @@ def main() -> None:
                    remote_data=args.remote_data,
                    checkpoint_every=args.checkpoint_every,
                    fail_at=tuple(args.fail_at), tql_filter=args.tql,
-                   model_axis=args.model_axis, device=args.device)
+                   model_axis=args.model_axis, device=device,
+                   loader_workers=args.loader_workers)
 
     ckpt = CheckpointManager(MemoryProvider(), keep=3)
     trainer_box = {}
@@ -245,16 +275,19 @@ def main() -> None:
         def run():
             t = Trainer(job, ckpt=ckpt, data_ds=trainer_box.get("data"))
             trainer_box["data"] = t.data_ds
+            trainer_box["mesh"] = t.mesh
             out = t.run()
             trainer_box["out"] = out
             return out["final_step"]
         return run
 
     result = run_resilient(make_runner, max_restarts=3,
-                           on_restart=lambda n, e: print(f"[restart {n}] {e}"))
-    print(f"done: final_step={result['final_step']} "
+                           on_restart=lambda n, e: say(f"[restart {n}] {e}"))
+    say(f"done: final_step={result['final_step']} "
           f"restarts={result['restarts']} "
-          f"final_loss={trainer_box['out']['final_loss']:.4f}")
+          f"final_loss={trainer_box['out']['final_loss']:.6f}"
+          + ("" if trainer_box["mesh"] is None
+             else f" mesh={tuple(trainer_box['mesh'].shape)}"))
 
 
 if __name__ == "__main__":

@@ -412,6 +412,22 @@ def mla_prefill(params, x, positions, cfg, *, impl: str = "kernel"):
     return out, mla_latents(params, x, positions, cfg)
 
 
+def mla_decode_partial(q_abs, q_rope, ckv, kr, limit: int, scale: float):
+    """The absorbed attention over a slice of the latent caches, its first
+    ``limit`` keys valid: q_abs (B,H,r), q_rope (B,H,rd), ckv (B,T_loc,r),
+    kr (B,T_loc,rd) -> (ctx (B,H,r) in ``ckv``'s dtype, lse (B,H) fp32),
+    the scores fp32 as ``mla_decode``'s.  With no valid key, zeros and
+    ``-inf``."""
+    ckv, kr = ckv[:, :limit], kr[:, :limit]
+    s = torch.einsum("bhr,btr->bht", q_abs, ckv).float()
+    s = s + torch.einsum("bhk,btk->bht", q_rope, kr).float()
+    s = s * scale
+    lse = torch.logsumexp(s, dim=-1)                  # -inf over no key
+    p = torch.exp(s - lse[..., None])
+    ctx = torch.einsum("bht,btr->bhr", p.to(ckv.dtype), ckv)
+    return ctx, lse
+
+
 def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     """Absorbed single-token MLA decode: attend in the latent space.
 
@@ -421,6 +437,12 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     returns them too.  ``W_uk`` is folded into the query and the context
     taken in the latent space, then projected through ``W_uv``; the scores
     and softmax are fp32.
+
+    On caches whose keys a mesh splits, each rank runs
+    :func:`mla_decode_partial` on its slice (the first ``pos + 1`` keys of
+    the whole valid), and the slices' contexts merge by log-sum-exp
+    (``split_call``) before ``W_uv`` and ``wo``: no latent and no score is
+    made whole along the keys.
     """
     m = cfg.mla
     B = x.shape[0]
@@ -430,13 +452,26 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     write_slot(cache_ckv, pos, c_kv[:, 0])
     write_slot(cache_kr, pos, k_rope[:, 0])
     q_abs = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])
-    s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
-    s = s + torch.einsum("bhk,btk->bht", q_rope[:, 0], cache_kr).float()
-    s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    T = cache_ckv.shape[1]
-    s = s.masked_fill(torch.arange(T, device=x.device) > pos, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    ctx = torch.einsum("bht,btr->bhr", p.to(cache_ckv.dtype), cache_ckv)
+    scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    if split_dims(cache_ckv, 1):
+        r = q_abs.shape[-1]
+        # one query operand (B,H,r+rd); the caches as one group head each
+        ctx = split_call(
+            lambda q, ckv, kr, limit: mla_decode_partial(
+                q[..., :r], q[..., r:], ckv[:, :, 0], kr[:, :, 0], limit,
+                scale),
+            torch.cat([q_abs, q_rope[:, 0].to(q_abs.dtype)], dim=-1),
+            (cache_ckv[:, :, None], cache_kr[:, :, None]),
+            limit=min(pos + 1, cache_ckv.shape[1]), q_dim=1, group_dim=2,
+            key_dim=1).to(cache_ckv.dtype)
+    else:
+        s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
+        s = s + torch.einsum("bhk,btk->bht", q_rope[:, 0], cache_kr).float()
+        s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+        T = cache_ckv.shape[1]
+        s = s.masked_fill(torch.arange(T, device=x.device) > pos, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        ctx = torch.einsum("bht,btr->bhr", p.to(cache_ckv.dtype), cache_ckv)
     out = torch.einsum("bhr,rhk->bhk", ctx, params["w_uv"])       # (B,H,vd)
     proj = torch.einsum("bhk,hkd->bd", out.to(x.dtype), params["wo"])[:, None]
     return proj, cache_ckv, cache_kr

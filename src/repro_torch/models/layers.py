@@ -81,7 +81,24 @@ def mlp(params: dict, x: torch.Tensor, variant: str) -> torch.Tensor:
 
 # ------------------------------------------------------------- embeddings
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]``.  A whole DTensor table (the train step's, made
+    whole by ``Model.compute_params``) is looked up by each rank for its
+    own tokens, and its gradient is the sum of the ranks' where the tokens
+    are split: DTensor's own placement of the lookup's backward (an
+    ``index_put`` with split indices) fails on some torch versions where a
+    batch dim is split.  A split table (decode's) takes DTensor's own
+    lookup, which gathers no table."""
+    if not is_dtensor(table) or any(not p.is_replicate()
+                                    for p in table.placements):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = table.device_mesh
+    pl = list(tokens.placements) if is_dtensor(tokens) else \
+        [Replicate()] * mesh.ndim
+    grad = [Partial() if p.is_shard() else Replicate() for p in pl]
+    local = table.to_local(grad_placements=grad)
+    ids = tokens.to_local() if is_dtensor(tokens) else tokens
+    return DTensor.from_local(local[ids], mesh, pl, run_check=False)
 
 
 # ------------------------------------------------------------------- loss

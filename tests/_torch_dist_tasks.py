@@ -48,6 +48,9 @@ DECODE_T = 16
 DECODE_CASES = [(impl, pos, 0) for impl in ("kernel", "torch")
                 for pos in (2, 9, 15)] + \
     [(impl, 21, DECODE_T) for impl in ("kernel", "torch")]
+# MLA decode on a key-split latent cache: pos in the first slice of
+# (1, 4)'s, in a middle one, at the last key
+MLA_POSITIONS = (2, 9, 15)
 # and split over two mesh dims: the long-context rules' ("pod", "data") on
 # a (2, 2, 1) mesh, the batch whole, the layer's weights split over
 # "fsdp" as given (so q is a pending sum)
@@ -276,6 +279,11 @@ def task_world4(rank, out, store_dir):
         out["decode"][impl, pos, window, "keys"] = decode_on(
             mesh, seq, impl, pos, window)
     out["mla_decode"] = mla_decode_on(mesh, seq, 9)
+    # MLA's latent caches split over their keys on (1, 4) and (2, 2)
+    mesh22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    out["mla_key_split"] = {(shape, pos): mla_decode_on(m, seq, pos)
+                            for shape, m in (((1, 4), mesh), ((2, 2), mesh22))
+                            for pos in MLA_POSITIONS}
     mesh3 = init_device_mesh("cpu", (2, 2, 1),
                              mesh_dim_names=("pod", "data", "model"))
     long = make_rules("decode", long_context=True)

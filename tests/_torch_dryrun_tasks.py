@@ -44,14 +44,15 @@ def nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in _local_leaves(tree))
 
 
-def task_bytes(multi: bool) -> dict:
+def task_bytes(multi: bool, shape=None) -> dict:
     """One device's bytes of params, optimizer state, decode cache and
-    inputs, for every runnable (arch, shape) on the production slice."""
+    inputs, for every runnable (arch, shape) on the production slice, or on
+    a (data, model) mesh of ``shape``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.steps import build_cell
-    mesh = make_fake_mesh(multi_pod=multi)
+    mesh = make_fake_mesh(multi_pod=multi, shape=shape)
     out = {}
     for arch in sorted(ARCHS):
         for shape, sc in SHAPES.items():
@@ -222,6 +223,38 @@ def task_seq_shard() -> dict:
     return out
 
 
+# decode on a key-split cache, GQA and MLA: smoke qwen2-72b (two KV heads)
+# and smoke deepseek-v3, each at two cache lengths, on a fake group of
+# (2, 2) or (1, 4)
+KEY_SPLIT_ARCHS = ("qwen2-72b", "deepseek-v3-671b")
+KEY_SPLIT_T = (64, 128)
+
+
+def task_key_split(shape) -> dict:
+    """Each arch's smoke decode step under the decode rules and under
+    --seq-shard's, at each of ``KEY_SPLIT_T``: the collectives it sends,
+    and the widths that say what the token's operands are."""
+    from repro_torch.launch.steps import trace_cell
+    mesh = fake_mesh(shape)
+    out = {}
+    for arch in KEY_SPLIT_ARCHS:
+        cfg = reduce_for_smoke(get_arch(arch))
+        if cfg.mla is None:
+            cfg = cfg.with_(num_kv_heads=SEQ_KV_HEADS)
+        widths = [cfg.num_layers, cfg.num_heads, cfg.num_kv_heads,
+                  cfg.head_dim]
+        if cfg.mla is not None:
+            widths += [cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim]
+        out[arch] = {"widths": widths}
+        for T in KEY_SPLIT_T:
+            sc = ShapeConfig("seq", T, SEQ_SHAPE.global_batch, "decode")
+            for name, seq in (("default", False), ("seq_shard", True)):
+                costs = trace_cell(cfg.with_(seq_shard_attn=seq), sc,
+                                   mesh)[0]
+                out[arch][f"{name}_{T}"] = costs.collective_by_kind
+    return out
+
+
 def task_allreduce() -> dict:
     """A matmul whose contraction dim is split over 8 ranks: the counter
     sees the all-reduce its result needs."""
@@ -320,9 +353,12 @@ def task_mesh_share() -> dict:
 
 TASKS = {"bytes_single": lambda: task_bytes(False),
          "bytes_multi": lambda: task_bytes(True),
+         "bytes_2x2": lambda: task_bytes(False, (2, 2)),
          "abstract": task_abstract, "deepseek": task_deepseek,
          "fake_vs_real": task_fake_vs_real, "allreduce": task_allreduce,
          "seq_shard": task_seq_shard,
+         "key_split_2x2": lambda: task_key_split((2, 2)),
+         "key_split_1x4": lambda: task_key_split((1, 4)),
          "prefill_mesh": task_prefill_mesh, "mesh_share": task_mesh_share}
 
 

@@ -426,6 +426,37 @@ def test_mla_decode_writes_a_key_split_latent_cache(world4):
                                        err_msg=name)
 
 
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("pos", tasks.MLA_POSITIONS)
+def test_mla_decode_on_a_key_split_cache(world4, mesh, pos):
+    """``mla_decode`` on latent caches whose keys "model" splits: each rank's
+    absorbed partial over its slice, merged by log-sum-exp before W_uv,
+    gives JAX's decode and the meshless port's to 1e-5, the token's latents
+    in the shard that holds ``pos``."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs import reduce_for_smoke as jax_reduce
+    from repro.models import attention as jattn
+    got = world4[0][0]["mla_key_split"][mesh, pos]
+    want = "(Replicate(), Shard(dim=1))" if mesh == (1, 4) else \
+        "(Shard(dim=0), Shard(dim=1))"
+    assert got["placements"] == want
+    inp = tasks.mla_inputs(pos)
+    cfg = tasks.reduce_for_smoke(tasks.get_arch("deepseek-v3-671b"))
+    ckv, kr = (torch.from_numpy(inp[n].copy()) for n in ("ckv", "kr"))
+    with torch.no_grad():
+        one = attn.mla_decode({n: torch.from_numpy(a) for n, a in
+                               inp["params"].items()},
+                              torch.from_numpy(inp["x"]), ckv, kr, pos, cfg)
+    jax_out = jattn.mla_decode(
+        {n: jnp.asarray(a) for n, a in inp["params"].items()},
+        jnp.asarray(inp["x"]), jnp.asarray(inp["ckv"]), jnp.asarray(inp["kr"]),
+        jnp.int32(pos), jax_reduce(jax_get_arch("deepseek-v3-671b")))
+    for want in ([t.numpy() for t in one], [np.asarray(t) for t in jax_out]):
+        for name, w in zip(("out", "ckv", "kr"), want):
+            np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+
 @pytest.mark.parametrize("impl,pos,window", tasks.DECODE_CASES_2D)
 def test_gqa_decode_on_a_cache_split_over_two_mesh_dims(world4, impl, pos,
                                                         window):

@@ -32,7 +32,7 @@ TASKS = Path(__file__).resolve().parent / "_torch_dryrun_tasks.py"
 sys.path.insert(0, str(TASKS.parent))
 NAMES = ["bytes_single", "bytes_multi", "abstract", "deepseek",
          "fake_vs_real", "allreduce", "prefill_mesh", "mesh_share",
-         "seq_shard"]
+         "seq_shard", "key_split_2x2", "key_split_1x4"]
 CELL = ["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
         "--mesh", "single", "--tag", "pytest"]
 TIMEOUT = 600
@@ -200,6 +200,37 @@ def test_decode_on_a_key_split_cache_gathers_no_cache(results):
     assert seq["kernel_calls"] == default["kernel_calls"] == \
         {"decode_attention": L}
     assert seq["peak_bytes"] <= default["peak_bytes"]
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "deepseek-v3-671b"])
+def test_key_split_decode_gathers_only_the_token(results, arch, mesh):
+    """A smoke decode step under --seq-shard's rules all-gathers what the
+    decode rules' step does plus, each layer, the token's operands made
+    whole along the key split, at two cache lengths alike: no latent, key
+    or score grows the count with T.  GQA's are q, k and v (on (1, 4) k
+    and v are whole under both rules: their two heads do not divide
+    "model"); MLA's, the absorbed query (B/data, H, r + rope).  The merge
+    all-reduces the lse max and the weighted outputs with their weights."""
+    from _torch_dryrun_tasks import KEY_SPLIT_T, SEQ_SHAPE
+    got = _get(results, f"key_split_{mesh}")[arch]
+    data = 2 if mesh == "2x2" else 1
+    L, H, Hkv, D = got["widths"][:4]
+    B_loc, fp32 = SEQ_SHAPE.global_batch // data, 4
+    if arch == "deepseek-v3-671b":
+        r, rope = got["widths"][4:]
+        token, out_width = H * (r + rope), r
+    else:
+        token = (H + 2 * Hkv) * D if data == 2 else H * D
+        out_width = D
+    for T in KEY_SPLIT_T:
+        default, seq = got[f"default_{T}"], got[f"seq_shard_{T}"]
+        assert seq["all-gather"] == default["all-gather"] + \
+            L * B_loc * token * fp32, (T, seq, default)
+        assert seq["all-reduce"] == default.get("all-reduce", 0) + \
+            L * B_loc * H * (1 + out_width + 1) * fp32, (T, seq, default)
+    assert len({tuple(sorted(got[f"seq_shard_{T}"].items()))
+                for T in KEY_SPLIT_T}) == 1
 
 
 def test_collectives_detected_on_sharded_matmul(results):

@@ -78,3 +78,31 @@ def test_importing_a_port_example_loads_no_jax_and_no_repro(name):
         words = line.split()
         if words[:1] in (["import"], ["from"]) and len(words) > 1:
             assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
+
+
+SCRIPT = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("mesh_smoke", {path!r})
+module = importlib.util.module_from_spec(spec)
+sys.modules["mesh_smoke"] = module
+spec.loader.exec_module(module)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+"""
+
+
+def test_mesh_smoke_loads_no_jax_and_no_repro():
+    """``scripts/mesh_smoke.py``, the four-card script, imports the port and
+    ``chip_smoke`` only."""
+    path = ROOT / "scripts" / "mesh_smoke.py"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c",
+                           SCRIPT.format(path=str(path))],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    for line in path.read_text().splitlines():
+        words = line.split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            assert words[1].split(".")[0] not in ("jax", "jaxlib", "repro")
