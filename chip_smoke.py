@@ -2149,7 +2149,7 @@ def trace_train(trainer, state, batch, card: str, tag: str = "trace_train",
 # backward), "MTP" all of ``_mtp_loss`` (its block, logits and loss), "other"
 # the rest of the model (norms, rope, residuals, embeddings, copies)
 TRACE_GROUPS = ("flash", "attention backward (plain)", "MLA attention (plain)",
-                "MTP", "expert GEMMs", "dispatch", "logits and loss",
+                "ssd", "ssd backward (plain)", "MTP", "expert GEMMs", "dispatch", "logits and loss",
                 "optimizer", "other GEMMs", "nccl", "other", "unattributed")
 # the functions a grouped trace marks with a profiler range of their name
 # (``scope:<name>``), for the time of the trace
@@ -2203,10 +2203,14 @@ def _enclosing(events) -> dict:
 def _trace_group(kernel: str, names: list) -> str:
     if "flash_fwd" in kernel:
         return "flash"
+    if "ssd_" in kernel:
+        return "ssd"
     if kernel.startswith("nccl"):           # the collectives across cards
         return "nccl"
     if any("FlashAttentionBackward" in n for n in names):   # plain recompute
         return "attention backward (plain)"
+    if any("_SSDBackward" in n for n in names):    # ssd_chunked recomputed
+        return "ssd backward (plain)"
     if "scope:update" in names or "scope:apply_updates" in names:
         return "optimizer"
     if "scope:_mtp_loss" in names:

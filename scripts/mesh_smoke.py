@@ -4,7 +4,37 @@ each run against the same job on one card.
 
 Run from the root of a checkout, on a host with four NVIDIA H100s:
 
-    PYTHONPATH=src python3 scripts/mesh_smoke.py
+    PYTHONPATH=src python3 scripts/mesh_smoke.py [--part dense_moe|ssm_mla]
+
+Each part is one invocation that ends inside 1200 s.  ``dense_moe`` (the
+default) runs gemma-2b and granite-moe-1b-a400m, as set out below;
+``ssm_mla`` runs the other three families' models on (2, 2) and (1, 4) with
+the same phases, the same gates and the same references:
+
+``[mesh_parity]``  fp32: mamba2-1.3b cut to 2 layers, 4 x 2048;
+    zamba2-2.7b cut to one shared-block period (the shared block once and
+    its 6 mamba layers), 4 x 1024; deepseek-v3-671b cut to 2 (dense)
+    layers with its multi-token prediction, 4 x 1024; and the kernels'
+    launches on each rank exact.
+``[mesh_train]``  bf16: mamba2 at full depth, ``chip_smoke.MAMBA2_JOB``'s
+    8 steps, on both meshes; deepseek-v3 at depth 3 with MTP,
+    ``chip_smoke.DEEPSEEK_JOB``'s 8 steps, on (1, 4); the ssd scan's (and
+    every kernel's) launches on each rank exact.
+``[mesh_grad]``  bf16: full-width zamba2-2.7b, one loss and gradient of
+    2 x 1024 on (2, 2) with no optimizer, as ``chip_smoke.zamba2`` runs
+    it: loss and gradient norm within ``chip_smoke.TRAIN_RTOL`` of one
+    card's, the ssd and flash launches (its shared block) exact.
+``[mesh_serve]``  mamba2, zamba2 and deepseek-v3 on (1, 4): fp32 greedy
+    tokens equal to one card's (deepseek-v3 at depth 3, under the decode
+    rules); bf16 tokens/s and a decode step's idle share beside one card's
+    (deepseek-v3 at depth 4, whose fourth layer is the MoE on expert
+    shards); the decode kernel's launches exact.
+``[mesh_dryrun]``  the train steps as below; and deepseek-v3's decode step
+    (depth 4, batch 4) counted on a fake (1, 4) group at two cache lengths,
+    whose collectives must be equal: nothing a layer sends grows with the
+    cache.
+
+The ``dense_moe`` part:
 
 It builds the kernels once (``chip_smoke.environment``), starts the dry
 run's counts (one CPU process each, on a fake process group of the card
@@ -57,6 +87,12 @@ power limit come before the last line, which is
 
 ``--cpu`` rehearses the whole script on the CPU with gloo ranks, the smoke
 configs and small shapes (no card, no kernel, no timing worth reading).
+
+A rank whose phase raises writes what it found and leaves at once: the
+other ranks may be waiting in a collective it will not enter, and torchrun
+then stops them, so that the run ends instead of hanging to its limit.
+``--keep-going`` runs every phase instead, for a rehearsal whose faults are
+the same on every rank (a torch version's).
 """
 
 from __future__ import annotations
@@ -64,6 +100,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -75,6 +112,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
@@ -93,6 +131,9 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core.storage import MemoryProvider  # noqa: E402
 from repro_torch.distributed.collectives import (  # noqa: E402
     collective_wire_bytes, quantized_psum)
+from repro_torch.distributed.sharding import (  # noqa: E402
+    distribute, is_dtensor, make_rules, make_shard_fn, place_tree, replicate,
+    sharding_for_specs)
 from repro_torch.launch.mesh import (destroy, init_from_env,  # noqa: E402
                                      make_local_mesh)
 from repro_torch.launch.serve import Server, ServeJob  # noqa: E402
@@ -103,37 +144,87 @@ from repro_torch.models import abstract, build_model, named_leaves  # noqa: E402
 
 OUT = ROOT / "build" / "mesh_smoke"
 GEMMA, GRANITE = "gemma-2b", cs.GRANITE
-PARITY_ARCHS = (GEMMA, GRANITE)
-PARITY_LAYERS, PARITY_STEPS = 2, 3
+MAMBA2, ZAMBA2, DEEPSEEK = cs.MAMBA2_JOB.arch, "zamba2-2.7b", cs.DEEPSEEK
+PARITY_STEPS = 3
+# the depth each model is cut to, by phase (a model not named keeps its
+# published depth): fp32 parity; bf16 training; serving, (fp32, bf16).
+# zamba2 builds num_layers // 6 periods of its shared block and 6 mamba
+# layers, in JAX as here, so 7 layers would build the same model as 6
+PARITY_LAYERS = {GEMMA: 2, GRANITE: 2, MAMBA2: 2, ZAMBA2: 6, DEEPSEEK: 2}
+TRAIN_LAYERS = {DEEPSEEK: cs.DEEPSEEK_TRAIN_LAYERS}
+SERVE_LAYERS = {DEEPSEEK: (cs.DEEPSEEK_TRAIN_LAYERS, cs.DEEPSEEK_SERVE_LAYERS)}
+PARITY_SEQ = {MAMBA2: 2048}       # the rest 1024, as their train jobs
+GRAD_SHAPE = (2, 1024)            # chip_smoke.zamba2's pass
+DECODE_DRY_T = (64, 32768)        # [mesh_dryrun]'s two cache lengths
 PARITY_RTOL = 1e-4                # tests/test_kernels.py's gradient tolerance
 FIRST_LOSS_RTOL = cs.TRAIN_RTOL   # 2e-2
 PROFILED_STEPS = 2                # device ms by group: a step's mean over 2
-REF_TIMEOUT_S = 240               # the one-card references
-RUN_TIMEOUT_S = 360               # one torchrun, all its phases
-# the whole script's: a run still going at the deadline is stopped (each
-# rank has written every phase it finished) and the lines are printed
-DEADLINE_S = 800
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Which mesh runs which phase.  The four-card plan is the script's;
-    ``--one-card`` runs every phase on a (1, 1) mesh of one rank, to check
-    the script on one card before it takes four."""
+    """Which mesh runs which phase of one part.  ``--one-card`` runs every
+    phase of the part on a (1, 1) mesh of one rank, to check the script on
+    one card before it takes four.  The time limits: the one-card
+    references, one torchrun with all its phases, and the whole script's,
+    at which a run still going is stopped (each rank has written every
+    phase it finished) and the lines are printed."""
     cards: int = 4
     meshes: tuple = ((4, 1), (2, 2), (1, 4))
-    train: tuple = (("gemma-2b", ((4, 1), (2, 2), (1, 4))),
-                    (cs.GRANITE, ((2, 2), (1, 4))))
-    ckpt: tuple = ((2, 2), (4, 1))        # saved on, restored onto
-    serve: tuple = ((4, 1), (1, 4))
-    seq: tuple = (1, 4)
-    allreduce: tuple = (4, 1)
+    parity: tuple = (GEMMA, GRANITE)
+    train: tuple = ((GEMMA, ((4, 1), (2, 2), (1, 4))),
+                    (GRANITE, ((2, 2), (1, 4))))
+    grad: tuple = ()                      # (arch, meshes): no optimizer
+    ckpt: tuple = ((2, 2), (4, 1))        # gemma-2b saved on, restored onto
+    serve: tuple = ((GEMMA, ((4, 1), (1, 4))),)
+    seq: Optional[tuple] = (1, 4)
+    allreduce: Optional[tuple] = (4, 1)
+    decode_dryrun: tuple = ()             # (arch, mesh)
+    ref_s: float = 240
+    run_s: float = 360
+    deadline_s: float = 800
 
 
-ONE_CARD = Plan(cards=1, meshes=((1, 1),),
-                train=(("gemma-2b", ((1, 1),)), (cs.GRANITE, ((1, 1),))),
-                ckpt=((1, 1), (1, 1)), serve=((1, 1),), seq=(1, 1),
-                allreduce=(1, 1))
+PARTS = {
+    "dense_moe": Plan(),
+    "ssm_mla": Plan(meshes=((2, 2), (1, 4)), parity=(MAMBA2, ZAMBA2, DEEPSEEK),
+                    train=((MAMBA2, ((2, 2), (1, 4))), (DEEPSEEK, ((1, 4),))),
+                    grad=((ZAMBA2, ((2, 2),)),), ckpt=(),
+                    serve=((MAMBA2, ((1, 4),)), (ZAMBA2, ((1, 4),)),
+                           (DEEPSEEK, ((1, 4),))),
+                    seq=None, allreduce=None,
+                    decode_dryrun=((DEEPSEEK, (1, 4)),),
+                    ref_s=420, run_s=480, deadline_s=1080),
+}
+
+
+def only(plan: Plan, meshes) -> Plan:
+    """``plan`` with the phases of ``meshes`` alone (a checkpoint saved on
+    one of them is still restored onto its other mesh, in the same run)."""
+    keep = lambda pairs: tuple((a, tuple(m for m in ms if m in meshes))
+                               for a, ms in pairs
+                               if any(m in meshes for m in ms))
+    return dataclasses.replace(
+        plan, meshes=tuple(m for m in plan.meshes if m in meshes),
+        train=keep(plan.train), grad=keep(plan.grad),
+        serve=keep(plan.serve),
+        ckpt=plan.ckpt if plan.ckpt and plan.ckpt[0] in meshes else (),
+        seq=plan.seq if plan.seq in meshes else None,
+        allreduce=plan.allreduce if plan.allreduce in meshes else None,
+        decode_dryrun=tuple((a, m) for a, m in plan.decode_dryrun
+                            if m in meshes))
+
+
+def one_card(plan: Plan) -> Plan:
+    """``plan`` with every phase on a (1, 1) mesh of one card."""
+    one = (1, 1)
+    each = lambda pairs: tuple((a, (one,)) for a, _ in pairs)
+    return dataclasses.replace(
+        plan, cards=1, meshes=(one,), train=each(plan.train),
+        grad=each(plan.grad), ckpt=(one, one) if plan.ckpt else (),
+        serve=each(plan.serve), seq=one if plan.seq else None,
+        allreduce=one if plan.allreduce else None,
+        decode_dryrun=tuple((a, one) for a, _ in plan.decode_dryrun))
 
 
 def _name(mesh) -> str:
@@ -146,26 +237,30 @@ def _say(tag: str, **fields) -> None:
 
 # ------------------------------------------------------------------ jobs
 def parity_job(arch: str, cpu: bool, model_axis: int = 1) -> TrainJob:
-    """3 steps of 4 x 1024 from the trainer's own lake, one loader worker
-    (the order every rank draws)."""
+    """3 steps of 4 x 1024 (mamba2: 4 x 2048) from the trainer's own lake,
+    one loader worker (the order every rank draws)."""
     return TrainJob(arch=arch, smoke=cpu, steps=PARITY_STEPS, global_batch=4,
-                    seq_len=32 if cpu else 1024, warmup=2, num_docs=16,
-                    checkpoint_every=100, log_every=100, loader_workers=1,
-                    model_axis=model_axis, device="cpu" if cpu else None)
+                    seq_len=32 if cpu else PARITY_SEQ.get(arch, 1024),
+                    warmup=2, num_docs=16, checkpoint_every=100,
+                    log_every=100, loader_workers=1, model_axis=model_axis,
+                    device="cpu" if cpu else None)
+
+
+TRAIN_JOBS = {GEMMA: cs.TRAIN_JOB, GRANITE: cs.GRANITE_JOB,
+              MAMBA2: cs.MAMBA2_JOB, DEEPSEEK: cs.DEEPSEEK_JOB}
 
 
 def train_job(arch: str, cpu: bool, model_axis: int = 1) -> TrainJob:
-    base = cs.TRAIN_JOB if arch == GEMMA else cs.GRANITE_JOB
-    job = dataclasses.replace(base, loader_workers=1, model_axis=model_axis,
-                              log_every=100)
+    job = dataclasses.replace(TRAIN_JOBS[arch], loader_workers=1,
+                              model_axis=model_axis, log_every=100)
     if cpu:
         job = dataclasses.replace(job, smoke=True, steps=4, seq_len=32,
                                   device="cpu")
     return job
 
 
-def serve_job(cpu: bool, model_axis: int = 1) -> ServeJob:
-    return ServeJob(arch=GEMMA, smoke=cpu, batch=4,
+def serve_job(arch: str, cpu: bool, model_axis: int = 1) -> ServeJob:
+    return ServeJob(arch=arch, smoke=cpu, batch=4,
                     prompt_len=8 if cpu else 32,
                     max_new_tokens=8 if cpu else 32, model_axis=model_axis,
                     device="cpu" if cpu else None)
@@ -174,6 +269,19 @@ def serve_job(cpu: bool, model_axis: int = 1) -> ServeJob:
 def prompts(vocab: int, job: ServeJob) -> np.ndarray:
     return np.random.default_rng(0).integers(
         0, vocab, (job.batch, job.prompt_len)).astype(np.int32)
+
+
+def cut(arch: str, layers: Optional[int], **changes) -> dict:
+    """``changes`` and the config changes that cut ``arch`` to its first
+    ``layers`` layers (none for ``None``); an MoE model's leading dense
+    layers are cut with it."""
+    if layers is not None:
+        changes["num_layers"] = layers
+        moe = get_arch(arch).moe
+        if moe is not None and moe.first_dense_layers > layers:
+            changes["moe"] = dataclasses.replace(moe,
+                                                 first_dense_layers=layers)
+    return changes
 
 
 @contextlib.contextmanager
@@ -199,9 +307,9 @@ class _Kept(CheckpointManager):
 
 
 def _lake(arch: str, job: TrainJob, cpu: bool):
-    """Granite learns from a Zipf lake (chip_smoke's); gemma-2b's trainer
-    makes its own."""
-    if arch != GRANITE:
+    """Granite, mamba2 and deepseek-v3 learn from a Zipf lake, as in
+    chip_smoke; gemma-2b's trainer makes its own."""
+    if arch == GEMMA:
         return None
     vocab = (get_arch(arch) if not cpu else
              reduce_for_smoke(get_arch(arch))).vocab_size
@@ -258,9 +366,13 @@ def _unknown_steps(trainer) -> dict:
         done[0] += 1
         lr = float(trainer.opt.learning_rate(torch.tensor(done[0])))
         for path, m in named_leaves(state["opt"]["m"]):
+            if m.numel() == 0:          # a stack of no layers
+                slack[path] = torch.zeros(m.shape)
+                continue
             m = m.detach().float().abs()
             known = torch.clamp(PARITY_RTOL * m.max() / m, max=2.0)
-            slack[path] = slack.get(path, 0.0) + lr * known
+            # on the host: deepseek-v3's would be 14.8 GB beside its state
+            slack[path] = slack.get(path, 0.0) + (lr * known).cpu()
         return state, metrics
     trainer.step_fn = recorded
     return slack
@@ -301,6 +413,134 @@ def _decode_step(srv, B: int, T: int):
     return step
 
 
+# --------------------------------------------------- the phases' work
+def _parity_trainer(arch: str, cpu: bool, model_axis: int) -> Trainer:
+    with arch_override(**cut(arch, PARITY_LAYERS[arch], dtype="float32")):
+        return Trainer(parity_job(arch, cpu, model_axis),
+                       ckpt=_Kept(MemoryProvider()))
+
+
+def _train(arch: str, cpu: bool, model_axis: int, device, ckpt=None):
+    """``[mesh_train]``'s run of ``arch`` -> (its numbers, the trainer,
+    its final state), the launches counted over the run."""
+    job = train_job(arch, cpu, model_axis)
+    _reset_peak(device)
+    with arch_override(**cut(arch, TRAIN_LAYERS.get(arch))):
+        t = Trainer(job, ckpt=ckpt or _Kept(MemoryProvider()),
+                    data_ds=_lake(arch, job, cpu))
+    cs._reset_counts()
+    res = t.run(restore=False)
+    counts = cs._counts()
+    peak = _peak_gb(device)
+    st = res["state"]
+    step_s = _step_s(res["history"])
+    out = {"losses": [h["loss"] for h in res["history"]], "step_s": step_s,
+           "tokens_per_s": job.global_batch * job.seq_len / step_s,
+           "peak_gb": peak, "launches": counts, "steps": job.steps,
+           "launches_want": _every_kernel(cs.train_launches(t.cfg,
+                                                            job.steps)),
+           "layers": t.cfg.num_layers, "state_bytes": _local_bytes(st)}
+    return out, t, st
+
+
+def _profile_train(out: dict, t: Trainer, st, rank: int, device) -> dict:
+    """``out`` with rank 0's profile of the steps after the run (each rank
+    runs them) and their peak."""
+    batch = next(t._batches())
+    _reset_peak(device)          # the steps alone, not init_state's draw
+    out["device_ms_by_group"] = _profiled(lambda: t.step_fn(st, batch), rank,
+                                          device, cs.device_ms_by_group)
+    out["step_peak_gb"] = _peak_gb(device)
+    return out
+
+
+def _every_kernel(want: dict) -> dict:
+    return {name: want.get(name, 0) for name in cs.COUNTED}
+
+
+def _loss_and_grad_norm(model, params, batch):
+    """(loss, the gradients' global norm) of one batch, both fp32, the same
+    on every rank: ``chip_smoke.loss_and_grad_norm`` on DTensors too (each
+    gradient placed as its parameter, as the train step places it)."""
+    with model.spmd():
+        loss, _, grads = cs._loss_and_grads(model, params, batch)
+        sq = 0.0
+        for g, (_, p) in zip(grads, named_leaves(params)):
+            if is_dtensor(p):
+                g = distribute(g, p.device_mesh, p.placements)
+            part = g.float().square().sum()
+            sq += float(replicate(part).to_local() if is_dtensor(part)
+                        else part)
+        loss = replicate(loss.detach()).to_local() if is_dtensor(loss) \
+            else loss
+    return float(loss), math.sqrt(sq)
+
+
+def _grad(arch: str, cpu: bool, model_axis: int, device) -> dict:
+    """``[mesh_grad]``: one loss and gradient of full-width ``arch`` on a
+    seeded batch, no optimizer; the params drawn whole from seed 0 on every
+    rank and placed by the train rules.  Twice: the launches counted over
+    both, each pass timed."""
+    B, S = (2, 32) if cpu else GRAD_SHAPE
+    cfg = get_arch(arch)
+    if cpu:
+        cfg = reduce_for_smoke(cfg)
+    mesh = make_local_mesh(model_axis, torch.device(device).type)
+    rules = make_rules("train")
+    model = build_model(cfg, shard_fn=make_shard_fn(mesh, rules))
+    _reset_peak(device)
+    params = model.init(torch.Generator(device).manual_seed(0), device)
+    if mesh is not None:
+        params = place_tree(params, sharding_for_specs(model.param_specs(),
+                                                       mesh, rules), mesh)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)).to(device)
+    batch = {"tokens": model.shard(tokens[:, :-1], ("batch", None)),
+             "targets": model.shard(tokens[:, 1:], ("batch", None))}
+    cs._reset_counts()
+    secs, got = [], None
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        got = _loss_and_grad_norm(model, params, batch)
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+    return {"loss": got[0], "grad_norm": got[1], "seconds": secs,
+            "launches": cs._counts(),
+            "launches_want": _every_kernel(cs.train_launches(cfg, 2)),
+            "batch": [B, S], "peak_gb": _peak_gb(device)}
+
+
+def _serve(arch: str, cpu: bool, model_axis: int, rank: int, device,
+           mesh_shape=None) -> dict:
+    """``[mesh_serve]``: fp32 greedy tokens, then bf16 tokens/s, the decode
+    kernel's launches and a decode step's profile (rank 0's; each rank
+    runs the steps), each model cut as ``SERVE_LAYERS`` says."""
+    job = serve_job(arch, cpu, model_axis)
+    fp32_layers, bf16_layers = SERVE_LAYERS.get(arch, (None, None))
+    with arch_override(**cut(arch, fp32_layers, dtype="float32")):
+        srv = Server(job)
+    if mesh_shape is not None:
+        assert tuple(srv.mesh.shape) == mesh_shape, srv.mesh.shape
+    p = prompts(srv.cfg.vocab_size, job)
+    fp32 = srv.generate(p).tolist()
+    del srv
+    _empty(device)
+    with arch_override(**cut(arch, bf16_layers)):
+        srv = Server(job)
+    cs._reset_counts()
+    srv.generate(p)
+    counts = cs._counts()
+    total = job.prompt_len + job.max_new_tokens
+    return {"fp32_tokens": fp32, "tokens_per_s": srv.throughput(),
+            "launches": counts, "layers": [fp32_layers, srv.cfg.num_layers],
+            "launches_want": _every_kernel({"decode_attention": cs
+                                            ._attention_layers(srv.cfg)
+                                            * total}),
+            "decode_step": _profiled(_decode_step(srv, job.batch, 64), rank,
+                                     device, cs.kernel_times)}
+
+
 # ------------------------------------------------------------ references
 def role_ref(cpu: bool, plan: Plan) -> None:
     """The one-card runs, on card 0 (or the CPU): parity states to
@@ -308,57 +548,46 @@ def role_ref(cpu: bool, plan: Plan) -> None:
     device = "cpu" if cpu else "cuda:0"
     if not cpu:
         torch.cuda.set_device(0)
-    out = {"parity": {}, "train": {}, "serve": {}}
-    for arch in PARITY_ARCHS:
-        with arch_override(dtype="float32", num_layers=PARITY_LAYERS):
-            t = Trainer(parity_job(arch, cpu), ckpt=_Kept(MemoryProvider()))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    out = {"parity": {}, "train": {}, "grad": {}, "serve": {},
+           "errors": {}}
+
+    def parity(arch):
+        t = _parity_trainer(arch, cpu, 1)
         slack = _unknown_steps(t)
+        cs._reset_counts()
         res = t.run(restore=False)
+        launches = cs._counts()
         st = res["state"]
         losses = [h["loss"] for h in res["history"]]
         torch.save({"losses": losses, "params": _whole(st["params"]),
                     "slack": slack, "lr_sum": _lr_sum(t, PARITY_STEPS)},
                    OUT / f"parity_{arch}.pt")
-        out["parity"][arch] = {"losses": losses}
-        del t, res, st
+        return {"losses": losses, "launches": launches}
+
+    def train(arch):
+        got, t, st = _train(arch, cpu, 1, device)
+        return _profile_train(got, t, st, 0, device)
+    phases = [("parity", a, parity) for a in plan.parity] + \
+        [("train", a, train) for a, _ in plan.train] + \
+        [("grad", a, lambda a: _grad(a, cpu, 1, device))
+         for a, _ in plan.grad] + \
+        [("serve", a, lambda a: _serve(a, cpu, 1, 0, device))
+         for a, _ in plan.serve]
+    # one phase's fault leaves the others' references (one process: no
+    # collective to hang)
+    for kind, arch, fn in phases:
+        try:
+            out[kind][arch] = fn(arch)
+        except Exception:
+            out["errors"][f"{kind} {arch}"] = traceback.format_exc()[-3000:]
         _empty(device)
-    for arch, _ in plan.train:
-        job = train_job(arch, cpu)
-        _reset_peak(device)
-        t = Trainer(job, ckpt=_Kept(MemoryProvider()),
-                    data_ds=_lake(arch, job, cpu))
-        cs._reset_counts()
-        res = t.run(restore=False)
-        launches = cs._counts()
-        st = res["state"]
-        batch = next(t._batches())
-        groups = _profiled(lambda: t.step_fn(st, batch), 0, device,
-                           cs.device_ms_by_group)
-        step_s = _step_s(res["history"])
-        out["train"][arch] = {
-            "losses": [h["loss"] for h in res["history"]], "step_s": step_s,
-            "tokens_per_s": job.global_batch * job.seq_len / step_s,
-            "peak_gb": _peak_gb(device), "launches": launches,
-            "device_ms_by_group": groups}
-        del t, res, st, batch
-        _empty(device)
-    job = serve_job(cpu)
-    with arch_override(dtype="float32"):
-        srv = Server(job)
-    out["serve"]["fp32_tokens"] = srv.generate(
-        prompts(srv.cfg.vocab_size, job)).tolist()
-    del srv
-    _empty(device)
-    srv = Server(job)
-    srv.generate(prompts(srv.cfg.vocab_size, job))
-    out["serve"]["bf16"] = {
-        "tokens_per_s": srv.throughput(),
-        "decode_step": _profiled(_decode_step(srv, job.batch, 64), 0, device,
-                                 cs.kernel_times)}
-    (OUT / "ref.json").write_text(json.dumps(out))
+        (OUT / "ref.json").write_text(json.dumps(out))
 
 
 def _empty(device) -> None:
+    gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
 
@@ -368,8 +597,9 @@ class Rank:
     """One torchrun rank's phases on one mesh shape; each phase's result
     (or its error) into ``mesh_<shape>_rank<r>.json``."""
 
-    def __init__(self, mesh, cpu: bool, plan: Plan):
+    def __init__(self, mesh, cpu: bool, plan: Plan, keep_going: bool):
         self.shape, self.cpu, self.plan = mesh, cpu, plan
+        self.keep_going = keep_going
         self.device = init_from_env("cpu" if cpu else None)
         self.rank = dist.get_rank()
         self.results = {}
@@ -377,66 +607,63 @@ class Rank:
         self.path = OUT / f"mesh_{_name(mesh)}_rank{self.rank}.json"
 
     def run(self, name, fn, *args):
+        """A phase; if it raises, its error is written and this process
+        leaves (see the module's docstring)."""
         t0 = time.perf_counter()
+        failed = False
         try:
             got = fn(*args)
         except Exception:
             got = {"error": traceback.format_exc()[-4000:]}
+            failed = True
         got["phase_s"] = time.perf_counter() - t0
         self.results[name] = got
         self.results["launches"] = self.launches
         self.path.write_text(json.dumps(self.results, default=str))
+        if failed and not self.keep_going:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
         _empty(self.device)
 
-    def _count(self):
-        counts = cs._counts()
+    def _count(self, counts: dict) -> dict:
         for k, v in counts.items():
             self.launches[k] += v
         return counts
 
     # ---------------------------------------------------------- parity
     def parity(self, arch: str) -> dict:
-        with arch_override(dtype="float32", num_layers=PARITY_LAYERS):
-            t = Trainer(parity_job(arch, self.cpu, self.shape[1]),
-                        ckpt=_Kept(MemoryProvider()))
+        t = _parity_trainer(arch, self.cpu, self.shape[1])
         assert tuple(t.mesh.shape) == self.shape, t.mesh.shape
+        cs._reset_counts()
         res = t.run(restore=False)
-        losses = [h["loss"] for h in res["history"]]
-        params, m = _whole(res["state"]["params"]), \
-            _whole(res["state"]["opt"]["m"])
-        out = {"losses": losses}
-        if self.rank == 0:
-            out.update(_held(losses, params, m, torch.load(
-                OUT / f"parity_{arch}.pt", map_location=self.device)))
+        out = {"losses": [h["loss"] for h in res["history"]],
+               "launches": self._count(cs._counts())}
+        st = res["state"]
+        ref = torch.load(OUT / f"parity_{arch}.pt", map_location="cpu",
+                         mmap=True) if self.rank == 0 else None
+        held = _Held(out["losses"], ref, self.device)
+        m = dict(named_leaves(st["opt"]["m"]))
+        for path, w in named_leaves(st["params"]):   # one leaf whole at a time
+            if w.numel() == 0:      # a stack of no layers (deepseek-v3's MoE)
+                continue
+            w, mw = _full(w), _full(m[path])       # every rank gathers
+            if ref is not None:
+                held.leaf(path, w, mw)
+            del w, mw
+        if ref is not None:
+            out.update(held.result())
         return out
 
     # ----------------------------------------------------------- train
     def train(self, arch: str, ckpt=None) -> dict:
-        job = train_job(arch, self.cpu, self.shape[1])
-        _reset_peak(self.device)
-        t = Trainer(job, ckpt=ckpt or _Kept(MemoryProvider()),
-                    data_ds=_lake(arch, job, self.cpu))
-        cs._reset_counts()
-        res = t.run(restore=False)
-        counts = self._count()
-        peak = _peak_gb(self.device)
-        st = res["state"]
-        step_s = _step_s(res["history"])
-        out = {"losses": [h["loss"] for h in res["history"]],
-               "step_s": step_s,
-               "tokens_per_s": job.global_batch * job.seq_len / step_s,
-               "peak_gb": peak, "launches": counts, "steps": job.steps,
-               "state_bytes": _local_bytes(st)}
+        out, t, st = _train(arch, self.cpu, self.shape[1], self.device,
+                            ckpt)
+        assert tuple(t.mesh.shape) == self.shape, t.mesh.shape
+        self._count(out["launches"])
         if ckpt is not None:        # before the profiled steps move ``st``
             out["ckpt"] = self._restore(t, st, ckpt)
-        batch = next(t._batches())
-        _reset_peak(self.device)     # the steps alone, not init_state's draw
-        out["device_ms_by_group"] = _profiled(
-            lambda: t.step_fn(st, batch), self.rank, self.device,
-            cs.device_ms_by_group)
-        out["step_peak_gb"] = _peak_gb(self.device)
-        return out
-
+        return _profile_train(out, t, st, self.rank, self.device)
     def _restore(self, saved_by, state, ckpt) -> dict:
         """[mesh_ckpt]: ``state`` (saved on this mesh at the last step)
         restored onto ``plan.ckpt[1]``, each leaf equal to the saved one;
@@ -467,25 +694,18 @@ class Rank:
                 "save_copy_s": ckpt.copy_s, "save_write_s": ckpt.write_s,
                 "next_loss": float(metrics["loss"])}
 
+    # ------------------------------------------------------------ grad
+    def grad(self, arch: str) -> dict:
+        out = _grad(arch, self.cpu, self.shape[1], self.device)
+        self._count(out["launches"])
+        return out
+
     # ----------------------------------------------------------- serve
-    def serve(self) -> dict:
-        job = serve_job(self.cpu, self.shape[1])
-        with arch_override(dtype="float32"):
-            srv = Server(job)
-        assert tuple(srv.mesh.shape) == self.shape, srv.mesh.shape
-        p = prompts(srv.cfg.vocab_size, job)
-        fp32 = srv.generate(p).tolist()
-        del srv
-        _empty(self.device)
-        srv = Server(job)
-        cs._reset_counts()
-        srv.generate(p)
-        counts = self._count()
-        return {"fp32_tokens": fp32, "tokens_per_s": srv.throughput(),
-                "launches": counts,
-                "decode_step": _profiled(_decode_step(srv, job.batch, 64),
-                                         self.rank, self.device,
-                                         cs.kernel_times)}
+    def serve(self, arch: str) -> dict:
+        out = _serve(arch, self.cpu, self.shape[1], self.rank, self.device,
+                     self.shape)
+        self._count(out["launches"])
+        return out
 
     # ------------------------------------------------------- seq split
     def seq_split(self) -> dict:
@@ -562,49 +782,75 @@ class Rank:
                     "fp32": ring * elems * 4, "bf16": ring * elems * 2}}
 
 
-def _held(losses, params, m, ref) -> dict:
-    """A meshed parity run against the one-card one: losses to
-    ``PARITY_RTOL`` relative; each parameter within ``PARITY_RTOL`` of its
-    leaf's largest plus the learning rates its first moments leave unknown
-    (:func:`_unknown_steps`).  With the worst element's numbers."""
-    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
-    worst, where = 0.0, None
-    for path, w in ref["params"].items():
-        slack = PARITY_RTOL * w.abs().max() + ref["slack"][path].double()
-        diff = (params[path].double() - w.double()).abs()
-        over = diff / slack
-        i = int(over.argmax())
-        if float(over.flatten()[i]) > worst:
-            worst, where = float(over.flatten()[i]), {
-                "leaf": path, "index": i, "shape": list(w.shape),
-                "diff": float(diff.flatten()[i]),
-                "slack": float(slack.flatten()[i]),
-                "w_max": float(w.abs().max()),
-                "m_mesh": float(m[path].flatten()[i]),
-                "m_mesh_max": float(m[path].abs().max()),
-                "leaf_diff_max": float(diff.max())}
-    return {"loss_rel_max": rel, "params_over_slack_max": worst,
-            "params_worst": where, "lr_sum": ref["lr_sum"],
-            "held": rel <= PARITY_RTOL and worst <= 1.0}
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A leaf whole in fp32 (a DTensor gathered: every rank must call)."""
+    return (x.full_tensor() if hasattr(x, "full_tensor") else x) \
+        .detach().float()
 
 
-def role_mesh(shape, cpu: bool, plan: Plan) -> None:
-    r = Rank(shape, cpu, plan)
+class _Held:
+    """A meshed parity run against the one-card one (``ref``, as
+    ``role_ref`` saved it): losses to ``PARITY_RTOL`` relative; each
+    parameter within ``PARITY_RTOL`` of its leaf's largest plus the
+    learning rates its first moments leave unknown (:func:`_unknown_steps`),
+    held one leaf at a time, in pieces of ``CHUNK`` elements.  With the
+    worst element's numbers."""
+    CHUNK = 1 << 26
+
+    def __init__(self, losses, ref, device):
+        self.ref, self.device = ref, device
+        self.rel = None if ref is None else max(
+            abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+        self.worst, self.where = 0.0, None
+
+    def leaf(self, path: str, w_mesh, m_mesh) -> None:
+        w = self.ref["params"][path].to(self.device).reshape(-1)
+        slack_all = self.ref["slack"][path].reshape(-1)
+        w_max = float(w.abs().max())
+        got, m = w_mesh.reshape(-1), m_mesh.reshape(-1)
+        for lo in range(0, w.numel(), self.CHUNK):
+            hi = lo + self.CHUNK
+            slack = PARITY_RTOL * w_max + \
+                slack_all[lo:hi].to(self.device).double()
+            diff = (got[lo:hi].double() - w[lo:hi].double()).abs()
+            over = diff / slack
+            i = int(over.argmax())
+            if float(over[i]) > self.worst:
+                self.worst, self.where = float(over[i]), {
+                    "leaf": path, "index": lo + i,
+                    "shape": list(self.ref["params"][path].shape),
+                    "diff": float(diff[i]), "slack": float(slack[i]),
+                    "w_max": w_max, "m_mesh": float(m[lo + i]),
+                    "m_mesh_max": float(m.abs().max())}
+            del slack, diff, over
+
+    def result(self) -> dict:
+        return {"loss_rel_max": self.rel, "params_over_slack_max": self.worst,
+                "params_worst": self.where, "lr_sum": self.ref["lr_sum"],
+                "held": self.rel <= PARITY_RTOL and self.worst <= 1.0}
+
+
+def role_mesh(shape, cpu: bool, plan: Plan, keep_going: bool) -> None:
+    r = Rank(shape, cpu, plan, keep_going)
     if not cpu:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     try:
-        for arch in PARITY_ARCHS:
+        for arch in plan.parity:
             r.run(f"parity {arch}", r.parity, arch)
         for arch, meshes in plan.train:
             if shape not in meshes:
                 continue
             ckpt = None
-            if arch == GEMMA and shape == plan.ckpt[0]:
+            if arch == GEMMA and plan.ckpt and shape == plan.ckpt[0]:
                 ckpt = cs._TimedCheckpoints(MemoryProvider(), keep=1)
             r.run(f"train {arch}", r.train, arch, ckpt)
-        if shape in plan.serve:
-            r.run("serve", r.serve)
+        for arch, meshes in plan.grad:
+            if shape in meshes:
+                r.run(f"grad {arch}", r.grad, arch)
+        for arch, meshes in plan.serve:
+            if shape in meshes:
+                r.run(f"serve {arch}", r.serve, arch)
         if shape == plan.seq:
             r.run("seq_split", r.seq_split)
         if shape == plan.allreduce:
@@ -623,7 +869,7 @@ def role_dryrun(arch: str, shape, cpu: bool) -> None:
                                              model_flops)
     from repro_torch.launch.steps import trace_cell
     job = train_job(arch, cpu)
-    cfg = get_arch(arch)
+    cfg = get_arch(arch).with_(**cut(arch, TRAIN_LAYERS.get(arch)))
     if cpu:
         cfg = reduce_for_smoke(cfg)
     sc = ShapeConfig(f"train_{job.global_batch}x{job.seq_len}", job.seq_len,
@@ -654,6 +900,30 @@ def role_dryrun(arch: str, shape, cpu: bool) -> None:
         "collective_s": rl.collective_s}))
 
 
+def role_dryrun_decode(arch: str, shape, cpu: bool) -> None:
+    """The dry run's count of ``arch``'s bf16 served decode step (its depth
+    as ``[mesh_serve]`` serves it, batch 4) on a fake group of ``shape``, at
+    each of ``DECODE_DRY_T``, into ``dryrun_decode_<arch>_<shape>.json``."""
+    from repro_torch.launch.mesh import make_fake_mesh
+    from repro_torch.launch.steps import trace_cell
+    cfg = get_arch(arch).with_(**cut(arch, SERVE_LAYERS.get(arch,
+                                                           (None, None))[1]))
+    if cpu:
+        cfg = reduce_for_smoke(cfg)
+    mesh = make_fake_mesh(shape=shape)
+    out = {"layers": cfg.num_layers, "by_T": {}}
+    for T in DECODE_DRY_T:
+        t0 = time.perf_counter()
+        costs, memory, _, _ = trace_cell(
+            cfg, ShapeConfig(f"decode_{T}", T, 4, "decode"), mesh)
+        out["by_T"][T] = {"collective_by_kind": costs.collective_by_kind,
+                          "collective_count": costs.collective_count,
+                          "peak_bytes": memory["peak_bytes"],
+                          "trace_s": time.perf_counter() - t0}
+    (OUT / f"dryrun_decode_{arch}_{_name(shape)}.json").write_text(
+        json.dumps(out))
+
+
 # --------------------------------------------------- the leading process
 def _start(args, env, **kw):
     """This script in a process of its own, leading a process group of its
@@ -663,9 +933,8 @@ def _start(args, env, **kw):
                             start_new_session=True, **kw)
 
 
-def _wait(proc, timeout: float, what: str, t_start: float) -> int:
-    timeout = max(1.0, min(timeout, t_start + DEADLINE_S
-                           - time.perf_counter()))
+def _wait(proc, timeout: float, what: str, deadline: float) -> int:
+    timeout = max(1.0, min(timeout, deadline - time.perf_counter()))
     try:
         return proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -687,31 +956,51 @@ def _error(got) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--role", choices=("lead", "ref", "mesh", "dryrun"),
-                    default="lead")
+    ap.add_argument("--role", choices=("lead", "ref", "mesh", "dryrun",
+                                       "dryrun_decode"), default="lead")
+    ap.add_argument("--part", choices=sorted(PARTS), default="dense_moe",
+                    help="which models and phases (each part one "
+                         "invocation)")
     ap.add_argument("--mesh", default=None)
     ap.add_argument("--arch", default=None)
     ap.add_argument("--cpu", action="store_true",
                     help="rehearse on gloo CPU ranks at the smoke configs")
     ap.add_argument("--one-card", action="store_true",
                     help="every phase on a (1, 1) mesh of one card")
+    ap.add_argument("--keep-going", action="store_true",
+                    help="a rank whose phase raises runs the next phase")
+    ap.add_argument("--meshes", default=None,
+                    help="run only these of the part's meshes, e.g. "
+                         "2x2,1x4")
     args = ap.parse_args()
-    plan = ONE_CARD if args.one_card else Plan()
+    plan = PARTS[args.part]
+    if args.meshes:
+        plan = only(plan, [tuple(int(x) for x in m.split("x"))
+                           for m in args.meshes.split(",")])
+    if args.one_card:
+        plan = one_card(plan)
     shape = tuple(int(x) for x in args.mesh.split("x")) if args.mesh else None
     if args.role == "ref":
         role_ref(args.cpu, plan)
         return 0
     if args.role == "mesh":
-        role_mesh(shape, args.cpu, plan)
+        role_mesh(shape, args.cpu, plan, args.keep_going)
         return 0
     if args.role == "dryrun":
         role_dryrun(args.arch, shape, args.cpu)
         return 0
-    return lead(args.cpu, plan, ["--one-card"] if args.one_card else [])
+    if args.role == "dryrun_decode":
+        role_dryrun_decode(args.arch, shape, args.cpu)
+        return 0
+    return lead(args.cpu, plan, ["--part", args.part]
+                + (["--meshes", args.meshes] if args.meshes else [])
+                + (["--one-card"] if args.one_card else [])
+                + (["--keep-going"] if args.keep_going else []))
 
 
 def lead(cpu: bool, plan: Plan, passed: list) -> int:
     t_start = time.perf_counter()
+    deadline = t_start + plan.deadline_s
     if not cpu and torch.cuda.device_count() < plan.cards:
         print(f"mesh_smoke: {torch.cuda.device_count()} CUDA devices visible, "
               f"{plan.cards} needed", file=sys.stderr)
@@ -725,27 +1014,34 @@ def lead(cpu: bool, plan: Plan, passed: list) -> int:
     flag = (["--cpu"] if cpu else []) + passed
     # the dry run's counts, on the CPU beside the card runs
     cpu_env = dict(env, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
-    dry = {(arch, m): _start(["--role", "dryrun", "--arch", arch, "--mesh",
-                              _name(m), *flag], cpu_env,
-                             stdout=subprocess.DEVNULL,
-                             stderr=open(OUT / f"dryrun_{arch}_{_name(m)}.err",
-                                         "w"))
+
+    def dry_run(role, arch, m, name):
+        return _start(["--role", role, "--arch", arch, "--mesh", _name(m),
+                       *flag], cpu_env, stdout=subprocess.DEVNULL,
+                      stderr=open(OUT / f"{name}.err", "w"))
+    dry = {(arch, m): dry_run("dryrun", arch, m, f"dryrun_{arch}_{_name(m)}")
            for arch, meshes in plan.train for m in meshes}
+    dry.update({("decode", arch, m): dry_run(
+        "dryrun_decode", arch, m, f"dryrun_decode_{arch}_{_name(m)}")
+        for arch, m in plan.decode_dryrun})
     failed = []
     t0 = time.perf_counter()
     rc = _wait(_start(["--role", "ref", *flag],
                       dict(env, CUDA_VISIBLE_DEVICES="0") if not cpu else env),
-               REF_TIMEOUT_S, "the one-card references", t_start)
+               plan.ref_s, "the one-card references", deadline)
     ref_s = time.perf_counter() - t0
     ref = _load(OUT / "ref.json")
-    if rc != 0 or ref is None:
+    if rc != 0 or ref is None or ref["errors"]:
         failed.append("references")
-        ref = {"parity": {}, "train": {}, "serve": {}}
+    ref = ref or {"parity": {}, "train": {}, "grad": {}, "serve": {},
+                  "errors": {}}
     _say("mesh_ref", card=card, rc=rc, s=ref_s, train={
         a: {k: v for k, v in r.items() if k != "losses"} | {
             "first_loss": r["losses"][0], "last_loss": r["losses"][-1]}
-        for a, r in ref["train"].items()},
-        serve=ref["serve"].get("bf16"))
+        for a, r in ref["train"].items()}, grad=ref["grad"],
+        errors=ref["errors"],
+        serve={a: {k: v for k, v in r.items() if k != "fp32_tokens"}
+               for a, r in ref["serve"].items()})
     runs = {}
     for m in plan.meshes:
         t0 = time.perf_counter()
@@ -754,21 +1050,23 @@ def lead(cpu: bool, plan: Plan, passed: list) -> int:
                str(Path(__file__).resolve()), "--role", "mesh", "--mesh",
                _name(m), *flag]
         rc = _wait(subprocess.Popen(cmd, env=env, cwd=ROOT,
-                                    start_new_session=True), RUN_TIMEOUT_S,
-                   f"the {_name(m)} run", t_start)
+                                    start_new_session=True), plan.run_s,
+                   f"the {_name(m)} run", deadline)
         runs[m] = [_load(OUT / f"mesh_{_name(m)}_rank{r}.json") or {}
                    for r in range(plan.cards)]
         _say("mesh_run", mesh=list(m), rc=rc, s=time.perf_counter() - t0)
         if rc != 0:
             failed.append(f"run {_name(m)}")
     failed += report(runs, ref, plan, card)
-    for (arch, m), p in dry.items():
-        _wait(p, RUN_TIMEOUT_S, f"the dry run of {arch} on {_name(m)}",
-              t_start)
+    for key, p in dry.items():
+        _wait(p, plan.run_s, f"the dry run {key}", deadline)
     failed += report_dryrun(runs, plan, cpu, card)
     launches = {k: sum(r.get("launches", {}).get(k, 0) for ranks in
                        runs.values() for r in ranks) for k in cs.COUNTED}
     _say("mesh_done", card=card, failed=failed, launches_across_cards=launches,
+         launches_by_mesh_and_rank={_name(m): [r.get("launches") for r in
+                                               ranks]
+                                    for m, ranks in runs.items()},
          script_s=time.perf_counter() - t_start)
     if failed:
         return 1
@@ -790,23 +1088,34 @@ def _phase(ranks, name):
     return got, err
 
 
+def _exact(got, card) -> bool:
+    """Each rank's kernel launches what its phase wanted (on the CPU,
+    where the wrappers launch nothing, nothing is held)."""
+    return card is None or all(g["launches"] == g["launches_want"]
+                               for g in got)
+
+
 def report(runs, ref, plan: Plan, card) -> list:
     """One line a phase and mesh; -> the names of the gates that failed."""
     failed = []
     for m, ranks in runs.items():
-        for arch in PARITY_ARCHS:
+        for arch in plan.parity:
             got, err = _phase(ranks, f"parity {arch}")
             r0 = got[0] or {}
+            want = ref["parity"].get(arch, {}).get("launches")
             ok = err is None and r0.get("held") is True and all(
-                g["losses"] == r0["losses"] for g in got)
+                g["losses"] == r0["losses"] and g["launches"] == want
+                for g in got)
             _say("mesh_parity", card=card, arch=arch, mesh=list(m),
-                 layers=PARITY_LAYERS, steps=PARITY_STEPS, dtype="float32",
-                 rtol=PARITY_RTOL, held=ok, error=err, **{
+                 layers=PARITY_LAYERS[arch], steps=PARITY_STEPS,
+                 dtype="float32", rtol=PARITY_RTOL, held=ok, error=err, **{
                      k: r0.get(k) for k in ("loss_rel_max",
                                             "params_over_slack_max",
                                             "params_worst", "lr_sum",
                                             "losses")},
-                 ref_losses=ref["parity"].get(arch, {}).get("losses"))
+                 ref_losses=ref["parity"].get(arch, {}).get("losses"),
+                 launches_by_rank=[(g or {}).get("launches") for g in got],
+                 one_card_launches=want)
             if not ok:
                 failed.append(f"parity {arch} {_name(m)}")
         for arch, meshes in plan.train:
@@ -822,16 +1131,19 @@ def report(runs, ref, plan: Plan, card) -> list:
                 first = abs(losses[0] - one["losses"][0]) / \
                     abs(one["losses"][0])
                 ok = losses[-1] < losses[0] and first <= FIRST_LOSS_RTOL \
-                    and all(g["losses"] == losses for g in got)
+                    and all(g["losses"] == losses for g in got) \
+                    and _exact(got, card)
                 line = dict(
-                    losses=losses, first_loss_rel=first,
+                    losses=losses, first_loss_rel=first, layers=r0["layers"],
                     step_s=r0["step_s"], tokens_per_s=r0["tokens_per_s"],
                     peak_gb_by_rank=[g["peak_gb"] for g in got],
+                    step_peak_gb_by_rank=[g["step_peak_gb"] for g in got],
                     launches_by_rank=[g["launches"] for g in got],
+                    launches_exact=_exact(got, card),
                     device_ms_by_group=r0["device_ms_by_group"],
                     one_card={k: one[k] for k in (
-                        "step_s", "tokens_per_s", "peak_gb",
-                        "device_ms_by_group")},
+                        "step_s", "tokens_per_s", "peak_gb", "step_peak_gb",
+                        "launches", "device_ms_by_group")},
                     phase_s=r0["phase_s"])
                 if "ckpt" in r0:
                     c = r0["ckpt"]
@@ -844,20 +1156,54 @@ def report(runs, ref, plan: Plan, card) -> list:
                  error=err, **line)
             if not ok:
                 failed.append(f"train {arch} {_name(m)}")
-        if m in plan.serve:
-            got, err = _phase(ranks, "serve")
-            want = ref["serve"].get("fp32_tokens")
+        for arch, meshes in plan.grad:
+            if m not in meshes:
+                continue
+            got, err = _phase(ranks, f"grad {arch}")
+            one = ref["grad"].get(arch)
+            ok = err is None and one is not None
+            line = {}
+            if ok:
+                r0 = got[0]
+                rel = {k: abs(r0[k] - one[k]) / abs(one[k])
+                       for k in ("loss", "grad_norm")}
+                ok = max(rel.values()) <= cs.TRAIN_RTOL and all(
+                    math.isfinite(r0[k]) for k in rel) and all(
+                    (g["loss"], g["grad_norm"]) ==
+                    (r0["loss"], r0["grad_norm"]) for g in got) \
+                    and _exact(got, card)
+                line = dict(rel=rel, rtol=cs.TRAIN_RTOL,
+                            **{k: r0[k] for k in ("loss", "grad_norm",
+                                                  "seconds", "batch")},
+                            peak_gb_by_rank=[g["peak_gb"] for g in got],
+                            launches_by_rank=[g["launches"] for g in got],
+                            launches_exact=_exact(got, card), one_card=one,
+                            phase_s=r0["phase_s"])
+            _say("mesh_grad", card=card, arch=arch, mesh=list(m), held=ok,
+                 error=err, **line)
+            if not ok:
+                failed.append(f"grad {arch} {_name(m)}")
+        for arch, meshes in plan.serve:
+            if m not in meshes:
+                continue
+            got, err = _phase(ranks, f"serve {arch}")
+            one = ref["serve"].get(arch, {})
+            want = one.get("fp32_tokens")
             ok = err is None and want is not None and all(
-                g["fp32_tokens"] == want for g in got)
+                g["fp32_tokens"] == want for g in got) and _exact(got, card)
             r0 = got[0] or {}
-            _say("mesh_serve", card=card, mesh=list(m), held=ok, error=err,
-                 fp32_tokens_equal=ok,
+            _say("mesh_serve", card=card, arch=arch, mesh=list(m), held=ok,
+                 error=err, layers=r0.get("layers"),
+                 fp32_tokens_equal=err is None and want is not None and all(
+                     g["fp32_tokens"] == want for g in got),
                  tokens_per_s=r0.get("tokens_per_s"),
                  decode_step=r0.get("decode_step"),
-                 one_card=ref["serve"].get("bf16"),
-                 launches_by_rank=[(g or {}).get("launches") for g in got])
+                 one_card={k: one.get(k) for k in (
+                     "tokens_per_s", "decode_step", "launches")},
+                 launches_by_rank=[(g or {}).get("launches") for g in got],
+                 launches_exact=err is None and _exact(got, card))
             if not ok:
-                failed.append(f"serve {_name(m)}")
+                failed.append(f"serve {arch} {_name(m)}")
         if m == plan.seq:
             got, err = _phase(ranks, "seq_split")
             _say("mesh_seq_split", card=card, mesh=list(m), held=err is None,
@@ -917,6 +1263,23 @@ def report_dryrun(runs, plan: Plan, cpu: bool, card) -> list:
                  error=err, **line)
             if not ok:
                 failed.append(f"dryrun {arch} {_name(m)}")
+    for arch, m in plan.decode_dryrun:
+        name = f"dryrun_decode_{arch}_{_name(m)}"
+        pred = _load(OUT / f"{name}.json")
+        if pred is None:
+            err, line = (OUT / f"{name}.err").read_text()[-3000:], {}
+        else:
+            err = None
+            by_T = list(pred["by_T"].values())
+            line = dict(layers=pred["layers"], by_T=pred["by_T"],
+                        equal_collectives=all(
+                            t["collective_by_kind"] ==
+                            by_T[0]["collective_by_kind"] for t in by_T))
+        ok = err is None and line["equal_collectives"]
+        _say("mesh_dryrun", card=card, arch=arch, mesh=list(m),
+             step="decode", held=ok, error=err, **line)
+        if not ok:
+            failed.append(f"dryrun decode {arch} {_name(m)}")
     return failed
 
 

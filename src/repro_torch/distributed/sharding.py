@@ -316,6 +316,29 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
+def batch_call(fn, x, *weights):
+    """``fn(x, *weights)`` on each rank's shard of ``x``'s batch (dim 0),
+    with every other dim of ``x`` and every weight whole on every rank: for
+    per-row work whose DTensor dispatch some torch versions get wrong
+    (torch 2.11 places ``F.pad`` of a DTensor with a list of placements one
+    short).  The result is split as ``x``'s batch and whole elsewhere; a
+    weight's gradient is summed over the ranks that split the batch.  With
+    no DTensor ``x``, ``fn`` runs on the inputs as they are."""
+    if not is_dtensor(x):
+        return fn(x, *weights)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    batch = [p == Shard(0) for p in x.placements]
+    pl = [Shard(0) if b else Replicate() for b in batch]
+    grad = [Partial() if b else Replicate() for b in batch]
+    local_x = distribute(x, mesh, pl).to_local()
+    local_w = [distribute(w, mesh, [Replicate()] * mesh.ndim)
+               .to_local(grad_placements=grad) if is_dtensor(w) else w
+               for w in weights]
+    return DTensor.from_local(fn(local_x, *local_w), mesh, pl,
+                              run_check=False)
+
+
 def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
                outs=((0, None),), keep: Optional[int] = None):
     """``fn`` on each rank's shards, for a function whose work splits over

@@ -46,7 +46,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (local_call, split_call,
+from repro_torch.distributed.sharding import (distribute, is_dtensor,
+                                              local_call, split_call,
                                               split_dims, write_slot)
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_partial,
@@ -393,15 +394,16 @@ def mla_train(params, x, positions, cfg, *, impl: str = "kernel"
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     scale = 1.0 / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    v_pad = F.pad(v, (0, q.shape[-1] - v.shape[-1]))
     # on each rank's (batch, head) shards, as the kernels run: DTensor's
     # einsum would merge a data-split batch dim with a model-split head dim
     # into one strided-shard dim, whose bmm it can place only by reading
-    # values (which a fake tensor has not)
+    # values (which a fake tensor has not); V padded there too, as
+    # DTensor's pad fails on some torch versions
     out = local_call(
-        lambda q, k, v: blockwise_attention(q, k, v, scale=scale, causal=True,
-                                            pairs=(impl == "torch_pairs")),
-        q, (k, v_pad), q_dim=2, group_dim=2)
+        lambda q, k, v: blockwise_attention(
+            q, k, F.pad(v, (0, q.shape[-1] - v.shape[-1])), scale=scale,
+            causal=True, pairs=(impl == "torch_pairs")),
+        q, (k, v), q_dim=2, group_dim=2)
     out = out[..., : m.v_head_dim]
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
@@ -443,6 +445,12 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     the whole valid), and the slices' contexts merge by log-sum-exp
     (``split_call``) before ``W_uv`` and ``wo``: no latent and no score is
     made whole along the keys.
+
+    Otherwise the scores are JAX's, but for where one sum is taken: a
+    query projection whose contraction a mesh splits (the decode rules
+    split x's d) leaves the rope query a pending sum, which is reduced on
+    the (B, H, rd) query, onto ``q_abs``'s head split, and not on the
+    (B, H, T) scores it would otherwise make pending.
     """
     m = cfg.mla
     B = x.shape[0]
@@ -465,8 +473,14 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
             limit=min(pos + 1, cache_ckv.shape[1]), q_dim=1, group_dim=2,
             key_dim=1).to(cache_ckv.dtype)
     else:
+        q_rope = q_rope[:, 0]
+        if is_dtensor(q_rope):
+            # the decode rules split x's d over "model", so the rope query
+            # is a pending sum; reduced onto q_abs's head split here, on
+            # (B, H, rd), its scores are not reduce-scattered (B, H, T)
+            q_rope = distribute(q_rope, q_abs.device_mesh, q_abs.placements)
         s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
-        s = s + torch.einsum("bhk,btk->bht", q_rope[:, 0], cache_kr).float()
+        s = s + torch.einsum("bhk,btk->bht", q_rope, cache_kr).float()
         s = s / math.sqrt(m.nope_head_dim + m.rope_head_dim)
         T = cache_ckv.shape[1]
         s = s.masked_fill(torch.arange(T, device=x.device) > pos, NEG_INF)

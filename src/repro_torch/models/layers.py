@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import distribute, is_dtensor, reduce_over
+from repro_torch.distributed.sharding import (_local_range, distribute,
+                                              is_dtensor, reduce_over)
 
 from .param import ParamSpec
 
@@ -81,24 +82,45 @@ def mlp(params: dict, x: torch.Tensor, variant: str) -> torch.Tensor:
 
 # ------------------------------------------------------------- embeddings
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  A whole DTensor table (the train step's, made
-    whole by ``Model.compute_params``) is looked up by each rank for its
-    own tokens, and its gradient is the sum of the ranks' where the tokens
-    are split: DTensor's own placement of the lookup's backward (an
-    ``index_put`` with split indices) fails on some torch versions where a
-    batch dim is split.  A split table (decode's) takes DTensor's own
-    lookup, which gathers no table."""
-    if not is_dtensor(table) or any(not p.is_replicate()
-                                    for p in table.placements):
+    """``table[tokens]``.  A DTensor table whole or split over the vocab
+    only is looked up by each rank on its own shard for its own tokens, an
+    id outside the shard giving zeros, and the lookup is the sum over the
+    mesh dims that split the vocab (each row from the one rank that holds
+    it): the masked partial sum DTensor's embedding makes, built here on
+    local tensors.  The table's gradient is each rank's rows summed over the
+    mesh dims that split the tokens.  DTensor's own lookup places its
+    backward (an ``index_put`` with split indices) on torch 2.11 neither
+    with a whole table nor with a vocab-split one where a batch dim is
+    split.  A vocab-split table with no gradient to take (decode's), and a
+    table split otherwise, take DTensor's own lookup."""
+    if not is_dtensor(table):
         return table[tokens]
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = table.device_mesh
-    pl = list(tokens.placements) if is_dtensor(tokens) else \
+    tok = list(tokens.placements) if is_dtensor(tokens) else \
         [Replicate()] * mesh.ndim
-    grad = [Partial() if p.is_shard() else Replicate() for p in pl]
+    vocab = [p == Shard(0) for p in table.placements]
+    if any(not (v or p.is_replicate()) or (v and not t.is_replicate())
+           for v, p, t in zip(vocab, table.placements, tok)) or \
+            (any(vocab) and not (table.requires_grad
+                                 and torch.is_grad_enabled())):
+        return table[tokens]
+    grad = [p if v else Partial() if t.is_shard() else Replicate()
+            for v, p, t in zip(vocab, table.placements, tok)]
     local = table.to_local(grad_placements=grad)
     ids = tokens.to_local() if is_dtensor(tokens) else tokens
-    return DTensor.from_local(local[ids], mesh, pl, run_check=False)
+    if any(vocab):
+        start, size = _local_range(table, 0)
+        ids = ids - start
+        inside = ((ids >= 0) & (ids < size))[..., None]
+        rows = torch.where(inside, local[ids.clamp(0, size - 1)],
+                           torch.zeros((), dtype=local.dtype,
+                                       device=local.device))
+    else:
+        rows = local[ids]
+    return DTensor.from_local(rows, mesh, [Partial() if v else t for v, t
+                                           in zip(vocab, tok)],
+                              run_check=False)
 
 
 # ------------------------------------------------------------------- loss

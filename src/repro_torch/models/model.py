@@ -55,8 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (gather_axes, sharded,
-                                              sharding_for_specs)
+from repro_torch.distributed.sharding import (batch_call, gather_axes,
+                                              sharded, sharding_for_specs)
 from . import attention as attn
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -809,8 +809,9 @@ def ssm_lib_prefill(p, hn, cfg, attn_impl):
     z, x, Bm, Cm, dt = ssm_lib._split_proj(zxbcdt, cfg)
     xbc_raw = torch.cat([x, Bm, Cm], dim=-1)
     K = s.conv_kernel
-    conv_tail = F.pad(xbc_raw, (0, 0, max(0, K - 1 - xbc_raw.shape[1]), 0)
-                      )[:, -(K - 1):]
+    # per batch shard: DTensor's pad fails on some torch versions
+    conv_tail = batch_call(lambda x: F.pad(
+        x, (0, 0, max(0, K - 1 - x.shape[1]), 0))[:, -(K - 1):], xbc_raw)
     xbc = ssm_lib._causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     d_in, G, N, nh = cfg.expand_dim, s.n_groups, s.d_state, cfg.ssm_heads
     B, S = hn.shape[:2]

@@ -30,8 +30,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (local_call, reduce_pending,
-                                              unshard)
+from repro_torch.distributed.sharding import (batch_call, local_call,
+                                              reduce_pending, unshard)
 
 from .param import ParamSpec
 
@@ -85,7 +85,14 @@ def _split_proj(zxbcdt: torch.Tensor, cfg):
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv via shifts (kernel K small). xbc (B,S,C)."""
+    """Depthwise causal conv via shifts (kernel K small). xbc (B,S,C).
+    Under a mesh it runs on each rank's batch shard with the weights whole
+    (``batch_call``): DTensor's ``pad`` fails on some torch versions."""
+    return batch_call(_conv_shifts, xbc, w, b)
+
+
+def _conv_shifts(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
     K = w.shape[0]
     out = xbc * w[K - 1]
     for i in range(1, K):

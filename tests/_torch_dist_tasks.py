@@ -182,9 +182,11 @@ def mla_inputs(pos: int) -> dict:
                 (B, DECODE_T, m.rope_head_dim)).astype(np.float32)}
 
 
-def mla_decode_on(mesh, rules, pos: int) -> dict:
-    """``mla_decode`` of ``mla_inputs(pos)`` placed by ``rules``: the output
-    and the latent caches whole, and their placements."""
+def mla_decode_on(mesh, rules, pos: int,
+                  x_axes=("batch", None, None)) -> dict:
+    """``mla_decode`` of ``mla_inputs(pos)`` placed by ``rules`` (x by
+    ``x_axes``): the output and the latent caches whole, and their
+    placements."""
     from torch.distributed.tensor.experimental import implicit_replication
     cfg = reduce_for_smoke(get_arch("deepseek-v3-671b"))
     inp = mla_inputs(pos)
@@ -194,12 +196,64 @@ def mla_decode_on(mesh, rules, pos: int) -> dict:
         return distribute(torch.from_numpy(a), mesh, placements_for(
             spec_for(a.shape, axes, mesh, rules), mesh))
     params = {n: place(a, specs[n].axes) for n, a in inp["params"].items()}
-    x = place(inp["x"], ("batch", None, None))
+    x = place(inp["x"], x_axes)
     ckv, kr = (place(inp[n], ("batch", "seq", None)) for n in ("ckv", "kr"))
     with torch.no_grad(), implicit_replication():
         o, ckv, kr = attn.mla_decode(params, x, ckv, kr, pos, cfg)
     return {"out": o.full_tensor().numpy(), "ckv": ckv.full_tensor().numpy(),
             "kr": kr.full_tensor().numpy(), "placements": str(ckv.placements)}
+
+
+# ssd_per_shard with one B/C group on a model axis of 4: each rank's two
+# heads read copies of the group (the kernel's G = its local heads)
+SSD = dict(B=2, S=64, nh=8, P=16, G=1, N=16, chunk=32)
+
+
+def ssd_inputs() -> dict:
+    """numpy inputs of one SSD scan at ``SSD``'s widths, as
+    ``test_torch_ssd.py`` draws them, and cotangents of y and the state."""
+    c = SSD
+    B, S, nh, P, G, N = (c[k] for k in ("B", "S", "nh", "P", "G", "N"))
+    rng = np.random.default_rng(9)
+    f = lambda a: a.astype(np.float32)
+    return {"x": f(rng.standard_normal((B, S, nh, P)) * 0.5),
+            "dt": f(rng.uniform(1e-3, 0.1, (B, S, nh))),
+            "A": f(-rng.uniform(0.5, 4.0, (nh,))),
+            "Bm": f(rng.standard_normal((B, S, G, N)) * 0.3),
+            "Cm": f(rng.standard_normal((B, S, G, N)) * 0.3),
+            "gy": f(rng.standard_normal((B, S, nh, P))),
+            "gst": f(rng.standard_normal((B, nh, N, P)))}
+
+
+def ssd_on(mesh) -> dict:
+    """``ssd_per_shard`` through the ssd wrapper of ``ssd_inputs()`` placed
+    by the train rules (the heads over "model", the one group whole): y, the
+    final state and the five gradients whole, and the group count each
+    rank's call was handed."""
+    from repro_torch.kernels.ssd_scan import ssd
+    from repro_torch.models.ssm import ssd_per_shard
+    inp, rules = ssd_inputs(), make_rules("train")
+    axes = {"x": ("batch", None, "heads", None), "dt": ("batch", None, "heads"),
+            "A": ("heads",), "Bm": ("batch", None, None, None),
+            "Cm": ("batch", None, None, None)}
+    placed = {n: distribute(torch.from_numpy(inp[n]), mesh, placements_for(
+        spec_for(inp[n].shape, a, mesh, rules), mesh)).requires_grad_()
+        for n, a in axes.items()}
+    groups = []
+
+    def scan(x, dt, A, Bm, Cm):
+        groups.append(Bm.shape[2])
+        return ssd(x, dt, A, Bm, Cm, chunk=SSD["chunk"])
+    y, st = ssd_per_shard(scan, *placed.values())
+    loss = (y * distribute(torch.from_numpy(inp["gy"]), mesh, y.placements)
+            ).sum() + (st * distribute(torch.from_numpy(inp["gst"]), mesh,
+                                       st.placements)).sum()
+    loss.backward()
+    return {"y": y.full_tensor().detach().numpy(),
+            "state": st.full_tensor().detach().numpy(),
+            "grads": {n: t.grad.full_tensor().numpy()
+                      for n, t in placed.items()},
+            "local_groups": groups}
 
 
 def gqa_inputs():
@@ -284,6 +338,12 @@ def task_world4(rank, out, store_dir):
     out["mla_key_split"] = {(shape, pos): mla_decode_on(m, seq, pos)
                             for shape, m in (((1, 4), mesh), ((2, 2), mesh22))
                             for pos in MLA_POSITIONS}
+    # the decode rules on (2, 2), x's d split over "model" as a decode
+    # step hands it to the layer: the rope query a pending sum
+    out["mla_decode_rules"] = {pos: mla_decode_on(
+        mesh22, make_rules("decode"), pos, ("batch", None, "model"))
+        for pos in MLA_POSITIONS}
+    out["ssd_per_shard"] = ssd_on(mesh)
     mesh3 = init_device_mesh("cpu", (2, 2, 1),
                              mesh_dim_names=("pod", "data", "model"))
     long = make_rules("decode", long_context=True)

@@ -404,26 +404,9 @@ def test_mla_decode_writes_a_key_split_latent_cache(world4):
     the token's latents land in the shard that holds ``pos`` (DTensor's
     ``cache[:, pos] = ...`` wrote into a gathered copy, and the shards kept
     their old rows), and the output matches one process and JAX."""
-    from repro.configs import get_arch as jax_get_arch
-    from repro.configs import reduce_for_smoke as jax_reduce
-    from repro.models import attention as jattn
     got = world4[0][0]["mla_decode"]
     assert got["placements"] == "(Replicate(), Shard(dim=1))"
-    inp = tasks.mla_inputs(9)
-    cfg = tasks.reduce_for_smoke(tasks.get_arch("deepseek-v3-671b"))
-    ckv, kr = (torch.from_numpy(inp[n].copy()) for n in ("ckv", "kr"))
-    with torch.no_grad():
-        one = attn.mla_decode({n: torch.from_numpy(a) for n, a in
-                               inp["params"].items()},
-                              torch.from_numpy(inp["x"]), ckv, kr, 9, cfg)
-    jax_out = jattn.mla_decode(
-        {n: jnp.asarray(a) for n, a in inp["params"].items()},
-        jnp.asarray(inp["x"]), jnp.asarray(inp["ckv"]), jnp.asarray(inp["kr"]),
-        jnp.int32(9), jax_reduce(jax_get_arch("deepseek-v3-671b")))
-    for want in ([t.numpy() for t in one], [np.asarray(t) for t in jax_out]):
-        for name, w in zip(("out", "ckv", "kr"), want):
-            np.testing.assert_allclose(got[name], w, rtol=2e-5, atol=2e-5,
-                                       err_msg=name)
+    _same_mla_decode(got, 9, 2e-5)
 
 
 @pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
@@ -433,13 +416,31 @@ def test_mla_decode_on_a_key_split_cache(world4, mesh, pos):
     absorbed partial over its slice, merged by log-sum-exp before W_uv,
     gives JAX's decode and the meshless port's to 1e-5, the token's latents
     in the shard that holds ``pos``."""
-    from repro.configs import get_arch as jax_get_arch
-    from repro.configs import reduce_for_smoke as jax_reduce
-    from repro.models import attention as jattn
     got = world4[0][0]["mla_key_split"][mesh, pos]
     want = "(Replicate(), Shard(dim=1))" if mesh == (1, 4) else \
         "(Shard(dim=0), Shard(dim=1))"
     assert got["placements"] == want
+    _same_mla_decode(got, pos, 1e-5)
+
+
+@pytest.mark.parametrize("pos", tasks.MLA_POSITIONS)
+def test_mla_decode_under_the_decode_rules(world4, pos):
+    """``mla_decode`` on (2, 2) under the decode rules, x's d split over
+    "model" as a decode step hands it to the layer, so that the rope query
+    is a pending sum, reduced on the query (not on the scores): JAX's decode
+    and the meshless port's to 1e-5, the caches split over the batch
+    only."""
+    got = world4[0][0]["mla_decode_rules"][pos]
+    assert got["placements"] == "(Shard(dim=0), Replicate())"
+    _same_mla_decode(got, pos, 1e-5)
+
+
+def _same_mla_decode(got, pos: int, tol: float) -> None:
+    """A meshed ``mla_decode`` of ``tasks.mla_inputs(pos)`` (output and
+    caches, whole) against the meshless port's and JAX's."""
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs import reduce_for_smoke as jax_reduce
+    from repro.models import attention as jattn
     inp = tasks.mla_inputs(pos)
     cfg = tasks.reduce_for_smoke(tasks.get_arch("deepseek-v3-671b"))
     ckv, kr = (torch.from_numpy(inp[n].copy()) for n in ("ckv", "kr"))
@@ -453,8 +454,37 @@ def test_mla_decode_on_a_key_split_cache(world4, mesh, pos):
         jnp.int32(pos), jax_reduce(jax_get_arch("deepseek-v3-671b")))
     for want in ([t.numpy() for t in one], [np.asarray(t) for t in jax_out]):
         for name, w in zip(("out", "ckv", "kr"), want):
-            np.testing.assert_allclose(got[name], w, rtol=1e-5, atol=1e-5,
+            np.testing.assert_allclose(got[name], w, rtol=tol, atol=tol,
                                        err_msg=name)
+
+
+def test_ssd_per_shard_with_one_group_on_a_model_axis_of_4(world4):
+    """mamba2's one B/C group on a (1, 4) mesh: ``ssd_per_shard`` hands
+    each rank's scan its two heads with one copy of the group each (G = 2,
+    the local heads); y and the final state match JAX's ``ssd_chunked`` to
+    ``ssd``'s 2e-4, the five gradients (the copies' summed back into the
+    one group, and over the ranks) to 1e-4."""
+    import jax
+
+    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+    got = world4[0][0]["ssd_per_shard"]
+    c = tasks.SSD
+    assert [r["ssd_per_shard"]["local_groups"] for r in world4[0]] == \
+        [[c["nh"] // 4]] * 4
+    inp = tasks.ssd_inputs()
+    names = ("x", "dt", "A", "Bm", "Cm")
+
+    def loss(*a):
+        y, st = jax_ssd_chunked(*a, chunk=c["chunk"])
+        return jnp.sum(y * inp["gy"]) + jnp.sum(st * inp["gst"]), (y, st)
+    grads, (y, st) = jax.grad(loss, argnums=tuple(range(5)), has_aux=True)(
+        *(jnp.asarray(inp[n]) for n in names))
+    np.testing.assert_allclose(got["y"], np.asarray(y), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(got["state"], np.asarray(st), atol=2e-4,
+                               rtol=2e-4)
+    for n, g in zip(names, grads):
+        np.testing.assert_allclose(got["grads"][n], np.asarray(g), atol=1e-4,
+                                   rtol=1e-4, err_msg=n)
 
 
 @pytest.mark.parametrize("impl,pos,window", tasks.DECODE_CASES_2D)

@@ -233,6 +233,26 @@ def test_key_split_decode_gathers_only_the_token(results, arch, mesh):
                 for T in KEY_SPLIT_T}) == 1
 
 
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+def test_mla_decode_under_the_decode_rules_reduces_no_score(results, mesh):
+    """The decode rules split x's d over "model", so ``mla_decode``'s rope
+    query comes out of its projection as a pending sum.  Reduced on the
+    (B/data, H, rope) query, onto the absorbed query's head split, it
+    leaves the (B/data, H, T) scores unreduced: a smoke deepseek-v3 decode
+    step reduce-scatters the same bytes at both cache lengths, as many as
+    under --seq-shard, whose count does not change (8,740 B on (2, 2)).
+    The parent's step reduce-scattered its scores, 16 B a position a layer
+    on (2, 2): 11,812 B at T=64, 15,908 B at T=128."""
+    from _torch_dryrun_tasks import KEY_SPLIT_T
+    got = _get(results, f"key_split_{mesh}")["deepseek-v3-671b"]
+    for T in KEY_SPLIT_T:
+        assert got[f"default_{T}"] == got[f"default_{KEY_SPLIT_T[0]}"], T
+        assert got[f"default_{T}"]["reduce-scatter"] == \
+            got[f"seq_shard_{T}"]["reduce-scatter"], T
+        if mesh == "2x2":
+            assert got[f"seq_shard_{T}"]["reduce-scatter"] == 8740
+
+
 def test_collectives_detected_on_sharded_matmul(results):
     """The port of ``test_hlo_analysis``'s check: a contraction dim split
     over 8 ranks needs a reduction."""
