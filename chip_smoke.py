@@ -78,9 +78,10 @@ code is not 0:
    in fp32 (bf16 reported);
    ``[grad_deepseek]``: one loss and gradient of the depth-4 model with MTP
    on 1 x 1024 tokens, finite, with ce, aux and mtp; ``[train_deepseek]``:
-   phase 4's gates at depth 3 plus MTP (8 steps of 4 x 1024 Zipf tokens,
-   bf16 AdamW moments, a checkpoint of 25.7 GB restored bit for bit) and
-   ``mtp`` at each step, then the trace of one step by group;
+   phase 4's gates at depth 1 plus MTP (8 steps of 4 x 1024 Zipf tokens,
+   bf16 AdamW moments, a checkpoint of its whole state restored bit for
+   bit; ``TRAIN_CUT``) and ``mtp`` at each step, then the trace of one step
+   by group;
 2b. image feed: a lake of 2048 random 250 x 250 x 3 images, queried on the
    card with the torch TQL engine (a WHERE and its top-k form, each equal to
    the numpy engine's), streamed through the loader and ``DeviceFeeder`` as
@@ -131,8 +132,8 @@ code is not 0:
    part;
 6. trace: where one full-width decode step and one full-width train step
    spend their time on the device (``torch.profiler``);
-7. train mamba2: ``Trainer.run`` on full-width mamba2-1.3b (48 layers, bf16,
-   remat "full"): 8 steps of batch 4 x 2048 streamed from a lake of
+7. train mamba2: ``Trainer.run`` on full-width mamba2-1.3b (cut to 16 of its
+   48 layers, ``TRAIN_CUT``; bf16, remat "full"): 8 steps of batch 4 x 2048 streamed from a lake of
    documents whose tokens follow Zipf's law, through the ssd kernel twice
    per layer and step; finite and falling loss, one checkpoint that
    restores bit for bit, and the loss and gradient norm of one batch through
@@ -150,10 +151,11 @@ code is not 0:
    bit-equal; in fp32 equal to the CPU's call within 1e-4 of its largest
    output, with the same expert ids; the share of assignments dropped at
    capacity 1280, and the layer's ms beside its expert GEMMs';
-10. train granite: ``Trainer.run`` on full-width granite-moe-1b-a400m (24
-   layers, bf16, remat "full"): phase 4's gates (8 steps of 4 x 1024 from
-   phase 7's lake of Zipf tokens, the flash kernel 2 x 24 times a step, a checkpoint restored bit for
-   bit, kernel vs plain attention within 2e-2) and the batch's aux loss;
+10. train granite: ``Trainer.run`` on full-width granite-moe-1b-a400m (cut
+   to 8 of its 24 layers, ``TRAIN_CUT``; bf16, remat "full"): phase 4's
+   gates (8 steps of 4 x 1024 from phase 7's lake of Zipf tokens, the flash
+   kernel 2 x 8 times a step, a checkpoint restored bit for bit, kernel vs
+   plain attention within 2e-2) and the batch's aux loss;
    then the trace of one step, with its device ms grouped by
    ``TRACE_GROUPS``;
 11. serve ssm and moe: phase 3's ``serve`` on full-width mamba2-1.3b,
@@ -226,6 +228,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -296,8 +299,9 @@ GRANITE_JOB = TrainJob(arch=GRANITE, smoke=False, steps=8, global_batch=4,
 # the deepseek phases: full-width deepseek-v3-671b, its depth cut in the
 # script (the 671B tree fits no card): serving and one gradient at depth 4,
 # the 3 leading dense layers and 1 MoE layer (31.6 GB of bf16 params); the
-# decode check and training at depth 3, no MoE layer (AdamW's state of one
-# MoE layer alone is ~92 GB): 8 steps of 4 x 1024 Zipf tokens.  AdamW moves
+# decode check at depth 3 (scripts/mesh_smoke.py also trains there), no MoE
+# layer (AdamW's state of one MoE layer alone is ~92 GB); training at
+# ``TRAIN_CUT``'s depth: 8 steps of 4 x 1024 Zipf tokens.  AdamW moves
 # each weight by about lr a step, so a d-wide product's output by about
 # lr * d of its scale: the other phases' 3e-4 is 0.31 of it at granite's
 # d of 1024, 2.2 at deepseek's 7168, where the loss went 15.8 -> 37.9 ->
@@ -314,6 +318,12 @@ MOE_RTOL = 1e-4           # the [moe] phase: fp32 card against the CPU
 # share of the k-th may choose another expert on another device: fp32
 # rounding, not a fault; such tokens are counted and left out of the gate
 MOE_NEAR_TIE = 1e-5
+# the depth the training phases of deepseek-v3, mamba2 and granite run at
+# here: each checkpoints its whole state into the lake and restores it, at
+# ~0.4 GB/s, which at the depths above took most of the script's time
+# (scripts/mesh_smoke.py trains them at those depths); gemma-2b's training,
+# the main path, keeps its 18 layers
+TRAIN_CUT = {DEEPSEEK: 1, "mamba2-1.3b": 16, GRANITE: 8}
 # each kernel's wrapper and its launch counter
 COUNTED = {"decode_attention": decode_attention,
            "flash_attention": flash_attention, "ssd_scan": ssd,
@@ -476,6 +486,9 @@ PRE_CASES = [((3, 64, 64, 3), crop, SWEEP_MEAN, SWEEP_STD)
 
 
 def _say(tag: str, **fields) -> None:
+    """A phase's line; ``t_s``, the seconds since the script started, clocks
+    the phases."""
+    fields["t_s"] = time.perf_counter() - T_START
     print(f"[{tag}] " + json.dumps(fields), flush=True)
 
 
@@ -1248,7 +1261,7 @@ def _server(job: ServeJob, layers=None, params=None) -> Server:
     tree."""
     if layers is None:
         return Server(job, params=params)
-    cfg = get_arch(job.arch).with_(num_layers=layers)
+    cfg = _cut(get_arch(job.arch), layers)
     if params is None:
         params = build_model(cfg).init(
             torch.Generator("cuda").manual_seed(job.seed), "cuda")
@@ -1257,11 +1270,20 @@ def _server(job: ServeJob, layers=None, params=None) -> Server:
     return srv
 
 
+def _cut(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` layers: an MoE model's leading
+    dense layers too, where the cut leaves fewer."""
+    if cfg.moe is not None and cfg.moe.first_dense_layers > layers:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                first_dense_layers=layers))
+    return cfg.with_(num_layers=layers)
+
+
 def _cut_trainer(trainer: Trainer, layers: int) -> None:
     """The trainer's model cut to its first ``layers`` layers after
     construction, before it draws any params."""
     job = trainer.job
-    trainer.cfg = trainer.cfg.with_(num_layers=layers)
+    trainer.cfg = _cut(trainer.cfg, layers)
     trainer.model = build_model(trainer.cfg)
     trainer.step_fn = steps_lib.make_train_step(
         trainer.model, trainer.opt, microbatches=job.microbatches,
@@ -2579,7 +2601,8 @@ def granite(card: str) -> dict:
     its ``[dryrun]`` -> that step's launches."""
     moe_layer(card)
     lake = zipf_lake(GRANITE_JOB, get_arch(GRANITE).vocab_size)
-    trainer, state, batch, _ = train(card, GRANITE_JOB, "train_granite", lake)
+    trainer, state, batch, _ = train(card, GRANITE_JOB, "train_granite", lake,
+                                     TRAIN_CUT[GRANITE])
     trace_train(trainer, state, batch, card, "trace_train_granite",
                 groups=True)
     return dryrun_train(card, trainer, state, batch)
@@ -2806,7 +2829,7 @@ def deepseek(card: str):
     torch.cuda.empty_cache()
     lake = zipf_lake(DEEPSEEK_JOB, get_arch(DEEPSEEK).vocab_size)
     trainer, state, batch, _ = train(card, DEEPSEEK_JOB, "train_deepseek",
-                                     lake, DEEPSEEK_TRAIN_LAYERS)
+                                     lake, TRAIN_CUT[DEEPSEEK])
     rss["after_train"] = _vm_rss_gb()
     trace_train(trainer, state, batch, card, "trace_train_deepseek",
                 groups=True)
@@ -3113,7 +3136,6 @@ def preprocess_timings(card: str, rotation: int = 5):
 
 
 def main() -> None:
-    t_start = time.perf_counter()
     card = environment()
     errors = kernel_vs_plain()
     seq_launches, seq_err, seq_timed = decode_seq_split(card)
@@ -3157,7 +3179,7 @@ def main() -> None:
     torchrun_train(card)
     lake = zipf_lake(MAMBA2_JOB, get_arch(MAMBA2_JOB.arch).vocab_size)
     trainer, state, batch, counts = train(card, MAMBA2_JOB, "train_mamba2",
-                                          lake)
+                                          lake, TRAIN_CUT[MAMBA2_JOB.arch])
     ssd_launches = counts["ssd_scan"]
     trace_train(trainer, state, batch, card, "trace_train_mamba2")
     ssd_launches += dryrun_train(card, trainer, state, batch)["ssd_scan"]
@@ -3235,7 +3257,7 @@ def main() -> None:
         "library_note": "no single PyTorch call crops, casts and normalizes",
         "feed_shape": pre,
     }
-    _say("done", script_s=time.perf_counter() - t_start)
+    _say("done", script_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": [entry, flash_entry, ssd_entry, pre_entry]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

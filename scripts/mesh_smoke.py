@@ -32,7 +32,9 @@ the same phases, the same gates and the same references:
 ``[mesh_dryrun]``  the train steps as below; and deepseek-v3's decode step
     (depth 4, batch 4) counted on a fake (1, 4) group at two cache lengths,
     whose collectives must be equal: nothing a layer sends grows with the
-    cache.
+    cache; and no collective of it may be as large as one rank's vocab
+    shard of the embedding table (each rank looks its tokens up in its own
+    shard).  Each line gives the lookup's own collectives.
 
 The ``dense_moe`` part:
 
@@ -78,7 +80,13 @@ prints one line a phase:
 ``[mesh_dryrun]``  each ``[mesh_train]`` step counted by the dry run on a
     fake group of the same shape: each rank's state bytes and kernel calls
     exactly; the predicted peak, collectives by kind and bound beside the
-    measured peak and step s.
+    measured peak and step s; the embedding lookup's collectives.
+
+``[mesh_parity]`` and ``[mesh_train]`` also give, for each rank, the
+(local heads, group heads) that its ssd and flash calls were handed.
+``--role dryrun|dryrun_decode --fake-device cuda`` counts one dry-run role
+on a "cuda" fake mesh (a CUDA build of torch, no kernel launched), to hold
+against the same role's count on the default "cpu" mesh.
 
 Every phase runs even if one before it failed; the exit code is not 0 if
 fewer than four cards are visible or any gate failed.  The card's name and
@@ -454,6 +462,32 @@ def _profile_train(out: dict, t: Trainer, st, rank: int, device) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _handed(out: dict):
+    """While active, each distinct (local heads, group heads) pair that the
+    ssd scan and the flash kernel were handed, into ``out`` by kernel: on a
+    model axis wider than the groups, a rank is handed the groups its heads
+    read (``sharding.local_call``)."""
+    import repro_torch.kernels.ssd_scan as ssd_pkg
+    import repro_torch.models.attention as attn_lib
+    seen = {"ssd_scan": set(), "flash_attention": set()}
+    real_ssd, real_flash = ssd_pkg.ssd, attn_lib.flash_attention
+
+    def ssd(x, dt, A, Bm, Cm, **kw):
+        seen["ssd_scan"].add((x.shape[2], Bm.shape[2]))
+        return real_ssd(x, dt, A, Bm, Cm, **kw)
+
+    def flash(q, k, v, **kw):
+        seen["flash_attention"].add((q.shape[2], k.shape[2]))
+        return real_flash(q, k, v, **kw)
+    ssd_pkg.ssd, attn_lib.flash_attention = ssd, flash
+    try:
+        yield
+    finally:
+        ssd_pkg.ssd, attn_lib.flash_attention = real_ssd, real_flash
+        out.update({k: sorted(v) for k, v in seen.items() if v})
+
+
 def _every_kernel(want: dict) -> dict:
     return {name: want.get(name, 0) for name in cs.COUNTED}
 
@@ -636,9 +670,11 @@ class Rank:
         t = _parity_trainer(arch, self.cpu, self.shape[1])
         assert tuple(t.mesh.shape) == self.shape, t.mesh.shape
         cs._reset_counts()
-        res = t.run(restore=False)
+        groups = {}
+        with _handed(groups):
+            res = t.run(restore=False)
         out = {"losses": [h["loss"] for h in res["history"]],
-               "launches": self._count(cs._counts())}
+               "launches": self._count(cs._counts()), "groups": groups}
         st = res["state"]
         ref = torch.load(OUT / f"parity_{arch}.pt", map_location="cpu",
                          mmap=True) if self.rank == 0 else None
@@ -657,8 +693,11 @@ class Rank:
 
     # ----------------------------------------------------------- train
     def train(self, arch: str, ckpt=None) -> dict:
-        out, t, st = _train(arch, self.cpu, self.shape[1], self.device,
-                            ckpt)
+        groups = {}
+        with _handed(groups):
+            out, t, st = _train(arch, self.cpu, self.shape[1], self.device,
+                                ckpt)
+        out["groups"] = groups
         assert tuple(t.mesh.shape) == self.shape, t.mesh.shape
         self._count(out["launches"])
         if ckpt is not None:        # before the profiled steps move ``st``
@@ -860,10 +899,33 @@ def role_mesh(shape, cpu: bool, plan: Plan, keep_going: bool) -> None:
 
 
 # ---------------------------------------------------------------- dry run
-def role_dryrun(arch: str, shape, cpu: bool) -> None:
+def _dry_name(role: str, arch: str, shape, fake_device: str) -> str:
+    """The file stem of a dry-run role's count; a "cuda" fake mesh's is
+    marked so."""
+    suffix = "" if fake_device == "cpu" else f"_{fake_device}"
+    return f"{role}_{arch}_{_name(shape)}{suffix}"
+
+
+def _lookup(costs, cfg, mesh) -> dict:
+    """The collectives of a traced step's embedding lookups
+    (``Model.lookup``), beside the bytes of one rank's vocab shard of the
+    table."""
+    from repro_torch.models.param import torch_dtype
+    lookup = costs.scoped.get("lookup", {"by_kind": {}, "count": {}})
+    rows = cfg.padded_vocab // dict(zip(mesh.mesh_dim_names,
+                                        mesh.shape))["model"]
+    return {"collective_by_kind": lookup["by_kind"],
+            "collective_count": lookup["count"],
+            "table_shard_bytes": rows * cfg.d_model
+            * torch_dtype(cfg.dtype).itemsize}
+
+
+def role_dryrun(arch: str, shape, cpu: bool, fake_device: str = "cpu"
+                ) -> None:
     """The dry run's count of ``[mesh_train]``'s step of ``arch`` on a fake
-    group of ``shape`` (this process rank 0), into ``dryrun_<arch>_<shape>
-    .json``."""
+    group of ``shape`` (this process rank 0) whose mesh is of
+    ``fake_device``, into ``dryrun_<arch>_<shape>.json`` (``_cuda`` before
+    the suffix on a "cuda" mesh)."""
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.roofline import (Roofline, active_param_count,
                                              model_flops)
@@ -874,9 +936,10 @@ def role_dryrun(arch: str, shape, cpu: bool) -> None:
         cfg = reduce_for_smoke(cfg)
     sc = ShapeConfig(f"train_{job.global_batch}x{job.seq_len}", job.seq_len,
                      job.global_batch, "train")
-    mesh = make_fake_mesh(shape=shape)
+    mesh = make_fake_mesh(shape=shape, device_type=fake_device)
     t0 = time.perf_counter()
     costs, memory, model, _ = trace_cell(cfg, sc, mesh)
+    trace_s = time.perf_counter() - t0
     rl = Roofline(arch=arch, shape=sc.name, mesh=_name(shape),
                   chips=mesh.size(), flops_per_device=costs.flops,
                   bytes_per_device=costs.hbm_bytes,
@@ -889,8 +952,9 @@ def role_dryrun(arch: str, shape, cpu: bool) -> None:
                   flops_by_dtype=costs.flops_by_dtype,
                   collective_bytes_across_nodes=costs
                   .collective_bytes_across_nodes)
-    (OUT / f"dryrun_{arch}_{_name(shape)}.json").write_text(json.dumps({
-        "trace_s": time.perf_counter() - t0,
+    (OUT / f"{_dry_name('dryrun', arch, shape, fake_device)}.json"
+     ).write_text(json.dumps({
+        "trace_s": trace_s, "lookup": _lookup(costs, cfg, mesh),
         "state_bytes": memory["state_bytes"],
         "kernel_calls": costs.kernel_calls, "peak_bytes": costs.peak_bytes,
         "collective_by_kind": costs.collective_by_kind,
@@ -900,28 +964,33 @@ def role_dryrun(arch: str, shape, cpu: bool) -> None:
         "collective_s": rl.collective_s}))
 
 
-def role_dryrun_decode(arch: str, shape, cpu: bool) -> None:
+def role_dryrun_decode(arch: str, shape, cpu: bool,
+                       fake_device: str = "cpu") -> None:
     """The dry run's count of ``arch``'s bf16 served decode step (its depth
-    as ``[mesh_serve]`` serves it, batch 4) on a fake group of ``shape``, at
-    each of ``DECODE_DRY_T``, into ``dryrun_decode_<arch>_<shape>.json``."""
+    as ``[mesh_serve]`` serves it, batch 4) on a fake group of ``shape``
+    whose mesh is of ``fake_device``, at each of ``DECODE_DRY_T``, and of
+    its embedding lookups, into ``dryrun_decode_<arch>_<shape>.json``
+    (``_cuda`` before the suffix on a "cuda" mesh)."""
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.steps import trace_cell
     cfg = get_arch(arch).with_(**cut(arch, SERVE_LAYERS.get(arch,
                                                            (None, None))[1]))
     if cpu:
         cfg = reduce_for_smoke(cfg)
-    mesh = make_fake_mesh(shape=shape)
+    mesh = make_fake_mesh(shape=shape, device_type=fake_device)
     out = {"layers": cfg.num_layers, "by_T": {}}
     for T in DECODE_DRY_T:
         t0 = time.perf_counter()
-        costs, memory, _, _ = trace_cell(
-            cfg, ShapeConfig(f"decode_{T}", T, 4, "decode"), mesh)
+        sc = ShapeConfig(f"decode_{T}", T, 4, "decode")
+        costs, memory, _, _ = trace_cell(cfg, sc, mesh)
         out["by_T"][T] = {"collective_by_kind": costs.collective_by_kind,
                           "collective_count": costs.collective_count,
+                          "largest_collective": costs.largest_collective,
                           "peak_bytes": memory["peak_bytes"],
-                          "trace_s": time.perf_counter() - t0}
-    (OUT / f"dryrun_decode_{arch}_{_name(shape)}.json").write_text(
-        json.dumps(out))
+                          "trace_s": time.perf_counter() - t0,
+                          "lookup": _lookup(costs, cfg, mesh)}
+    (OUT / f"{_dry_name('dryrun_decode', arch, shape, fake_device)}.json"
+     ).write_text(json.dumps(out))
 
 
 # --------------------------------------------------- the leading process
@@ -972,6 +1041,10 @@ def main() -> int:
     ap.add_argument("--meshes", default=None,
                     help="run only these of the part's meshes, e.g. "
                          "2x2,1x4")
+    ap.add_argument("--fake-device", default="cpu", choices=("cpu", "cuda"),
+                    help="the dry-run roles' fake mesh (cuda: the card "
+                         "host's CUDA build, which DTensor dispatches as on "
+                         "the cards)")
     args = ap.parse_args()
     plan = PARTS[args.part]
     if args.meshes:
@@ -987,10 +1060,10 @@ def main() -> int:
         role_mesh(shape, args.cpu, plan, args.keep_going)
         return 0
     if args.role == "dryrun":
-        role_dryrun(args.arch, shape, args.cpu)
+        role_dryrun(args.arch, shape, args.cpu, args.fake_device)
         return 0
     if args.role == "dryrun_decode":
-        role_dryrun_decode(args.arch, shape, args.cpu)
+        role_dryrun_decode(args.arch, shape, args.cpu, args.fake_device)
         return 0
     return lead(args.cpu, plan, ["--part", args.part]
                 + (["--meshes", args.meshes] if args.meshes else [])
@@ -1115,7 +1188,8 @@ def report(runs, ref, plan: Plan, card) -> list:
                                             "losses")},
                  ref_losses=ref["parity"].get(arch, {}).get("losses"),
                  launches_by_rank=[(g or {}).get("launches") for g in got],
-                 one_card_launches=want)
+                 one_card_launches=want,
+                 groups_by_rank=[(g or {}).get("groups") for g in got])
             if not ok:
                 failed.append(f"parity {arch} {_name(m)}")
         for arch, meshes in plan.train:
@@ -1140,6 +1214,7 @@ def report(runs, ref, plan: Plan, card) -> list:
                     step_peak_gb_by_rank=[g["step_peak_gb"] for g in got],
                     launches_by_rank=[g["launches"] for g in got],
                     launches_exact=_exact(got, card),
+                    groups_by_rank=[g["groups"] for g in got],
                     device_ms_by_group=r0["device_ms_by_group"],
                     one_card={k: one[k] for k in (
                         "step_s", "tokens_per_s", "peak_gb", "step_peak_gb",
@@ -1256,6 +1331,7 @@ def report_dryrun(runs, plan: Plan, cpu: bool, card) -> list:
                     bound_s=pred["bound_s"], dominant=pred["dominant"],
                     compute_s=pred["compute_s"], memory_s=pred["memory_s"],
                     collective_s=pred["collective_s"],
+                    lookup=pred["lookup"],
                     step_s=got[0]["step_s"],
                     bound_over_step=pred["bound_s"] / got[0]["step_s"],
                     trace_s=pred["trace_s"])
@@ -1271,11 +1347,18 @@ def report_dryrun(runs, plan: Plan, cpu: bool, card) -> list:
         else:
             err = None
             by_T = list(pred["by_T"].values())
+            # no collective of a decode step as large as one rank's vocab
+            # shard of the embedding table
             line = dict(layers=pred["layers"], by_T=pred["by_T"],
                         equal_collectives=all(
                             t["collective_by_kind"] ==
-                            by_T[0]["collective_by_kind"] for t in by_T))
-        ok = err is None and line["equal_collectives"]
+                            by_T[0]["collective_by_kind"] for t in by_T),
+                        moves_no_table=all(
+                            t["largest_collective"]
+                            < t["lookup"]["table_shard_bytes"]
+                            for t in by_T))
+        ok = err is None and line["equal_collectives"] and \
+            line["moves_no_table"]
         _say("mesh_dryrun", card=card, arch=arch, mesh=list(m),
              step="decode", held=ok, error=err, **line)
         if not ok:

@@ -57,7 +57,12 @@ def _host_bytes(t: torch.Tensor) -> Tuple[np.ndarray, str, List[int]]:
 
 
 def _leaf(raw: np.ndarray, dtype: str, shape, device) -> torch.Tensor:
-    raw = np.ascontiguousarray(raw, dtype=np.uint8).copy()
+    """A leaf from its bytes as the lake reads them: a tiled (large) leaf
+    comes back as an array of its own, used as it is; a small one as a
+    read-only view of the lake's bytes, copied."""
+    raw = np.ascontiguousarray(raw, dtype=np.uint8)
+    if not raw.flags.writeable:
+        raw = raw.copy()
     if dtype == "bfloat16":                 # numpy has no bfloat16
         t = torch.from_numpy(raw.view(np.int16)).view(torch.bfloat16)
     else:

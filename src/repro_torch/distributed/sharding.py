@@ -358,11 +358,17 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
     ``q`` keeps its batch and heads split and is made whole along every
     other dim.  A group operand is split as ``q`` when its heads divide the
     mesh dims that split ``q``'s heads; otherwise it stays whole there, as
-    ``fit_spec`` leaves it, and each rank hands ``fn``, for each of its
-    query heads ``h``, the group head it uses (``h // (H / Hk)``), so that
-    the local grouping is one to one; the gradients of the copies sum back
-    into their head, and over the ranks.  A group operand's dim ``keep``, if
-    given, stays split where it is split (``split_call``'s keys).
+    ``fit_spec`` leaves it, and each rank hands ``fn`` the group heads its
+    query heads ``[h0, h0 + H_loc)`` read, ``G = H / Hk`` query heads a
+    group: the one group ``h0 // G`` where they all read it (``G % H_loc ==
+    0``), the slice of whole groups from ``h0 // G`` where they read whole
+    ones (``h0 % G == 0`` and ``H_loc % G == 0``), and only where they
+    straddle part of a group (H=12, Hk=3 on 4 ranks), for each query head
+    ``h`` a copy of the group head it uses (``h // G``), so that the local
+    grouping is one to one.  A group's gradient sums, over the ranks whose
+    heads read it, into its head (the copies' first into theirs).  A group
+    operand's dim ``keep``, if given, stays split where it is split
+    (``split_call``'s keys).
     """
     tensors = (q,) + tuple(groups) + tuple(t for t, _ in per_head)
     if not any(is_dtensor(t) for t in tensors):
@@ -418,8 +424,7 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
                     pl[i] = grad[i] = p
         lt = local(t, pl, grad)
         if not aligned:
-            idx = torch.arange(h0, h0 + H_loc, device=lt.device) // G
-            lt = lt.index_select(group_dim, idx)
+            lt = _groups_of(lt, group_dim, h0, H_loc, G)
         local_groups.append(lt)
     local_rest = []
     for t, d in per_head:
@@ -432,6 +437,22 @@ def local_call(fn, q, groups=(), per_head=(), *, q_dim: int, group_dim: int,
         pl, _ = target(bd, q_dim if hd is None else hd)
         wrapped.append(DTensor.from_local(o, mesh, pl, run_check=False))
     return wrapped[0] if single else tuple(wrapped)
+
+
+def _groups_of(t: torch.Tensor, dim: int, h0: int, n: int, G: int
+               ) -> torch.Tensor:
+    """The group heads (dim ``dim`` of ``t``, every group head) that the
+    query heads ``[h0, h0 + n)`` read, ``G`` query heads a group: those
+    groups, when the heads read whole groups or all one group (a copy of
+    the slice, for a kernel that takes contiguous operands; no copy when it
+    is all of ``t``); else a copy for each query head of its group head."""
+    if G % n == 0 or (h0 % G == 0 and n % G == 0):
+        first, count = h0 // G, max(n // G, 1)
+        if count == t.shape[dim]:
+            return t
+        return t.narrow(dim, first, count).contiguous()
+    idx = torch.arange(h0, h0 + n, device=t.device) // G
+    return t.index_select(dim, idx)
 
 
 def split_dims(x: torch.Tensor, dim: int) -> Tuple[int, ...]:

@@ -48,10 +48,11 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
              attn_impl: str = "kernel", microbatches: int = 1,
              grad_compress: bool = False, fsdp=None, remat=None,
              seq_shard: bool = False, tag: str = "", batch=None,
-             seq_len=None) -> dict:
+             seq_len=None, device_type: str = "cpu") -> dict:
     """One cell.  ``mesh_kind``: "single" (16, 16), "multi" (2, 16, 16), or
     "DxM", a (data, model) mesh of that shape; ``batch`` and ``seq_len``
-    replace the shape's global batch and sequence length."""
+    replace the shape's global batch and sequence length; ``device_type``
+    is the fake mesh's ("cuda" needs a CUDA build of torch)."""
     from repro_torch.configs import ARCHS, SHAPES, cell_is_runnable
     from repro_torch.launch.mesh import make_fake_mesh
     from repro_torch.launch.roofline import (Roofline, active_param_count,
@@ -71,7 +72,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *,
         return {"arch": arch, "shape": shape, "mesh": mesh_kind,
                 "status": "SKIP(full-attention)"}
     mesh = make_fake_mesh(multi_pod=(mesh_kind == "multi"),
-                          shape=_host_shape(mesh_kind))
+                          shape=_host_shape(mesh_kind),
+                          device_type=device_type)
     chips = mesh.size()
     t0 = time.time()
     costs, memory, model, _ = trace_cell(
@@ -142,7 +144,7 @@ def _run_all(args) -> int:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                "--arch", arch, "--shape", shape, "--mesh", mesh_kind,
                "--tag", args.tag, "--attn-impl", args.attn_impl,
-               "--out", str(args.out)]
+               "--fake-device", args.fake_device, "--out", str(args.out)]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True,
                                timeout=args.timeout)
@@ -188,6 +190,8 @@ def main() -> int:
     ap.add_argument("--remat", default=None)
     ap.add_argument("--seq-shard", action="store_true")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--fake-device", default="cpu", choices=("cpu", "cuda"),
+                    help="the fake mesh's device type (cuda: a CUDA build)")
     # deepseek-v3's prefill_32k cells take ~80 min of a core
     ap.add_argument("--timeout", type=int, default=7200)
     ap.add_argument("--skip-existing", action="store_true")
@@ -206,7 +210,8 @@ def main() -> int:
                           grad_compress=args.grad_compress,
                           fsdp=fsdp, remat=args.remat,
                           seq_shard=args.seq_shard, tag=args.tag,
-                          batch=args.batch, seq_len=args.seq_len)
+                          batch=args.batch, seq_len=args.seq_len,
+                          device_type=args.fake_device)
     except Exception:
         traceback.print_exc()
         result = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,

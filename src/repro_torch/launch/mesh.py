@@ -91,12 +91,16 @@ def make_local_mesh(model_axis: int = 1, device_type: Optional[str] = None):
 
 
 def make_fake_mesh(multi_pod: bool = False,
-                   shape: Optional[Tuple[int, ...]] = None):
-    """A ``DeviceMesh`` of device type "cpu" over a fake process group, this
+                   shape: Optional[Tuple[int, ...]] = None,
+                   device_type: str = "cpu"):
+    """A ``DeviceMesh`` of ``device_type`` over a fake process group, this
     process rank 0: the production slice, (16, 16) as (data, model) or
     (2, 16, 16) as (pod, data, model); or, given ``shape``, a (data, model)
     mesh of that shape (a host's cards, for instance (2, 2)).  It
-    initialises the group, so one process holds one such mesh."""
+    initialises the group, so one process holds one such mesh.  A "cuda"
+    mesh needs a CUDA build of torch (its fake tensors are "cuda" ones) and
+    dispatches DTensor's collectives as on the cards; the counter counts
+    the same on both (``op_analysis``)."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if shape is None:
@@ -108,7 +112,8 @@ def make_fake_mesh(multi_pod: bool = False,
         world *= n
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=world)
-    return init_device_mesh("cpu", desc.sizes, mesh_dim_names=desc.axis_names)
+    return init_device_mesh(device_type, desc.sizes,
+                            mesh_dim_names=desc.axis_names)
 
 
 def torchrun_env() -> Optional[Tuple[int, int, int, int]]:

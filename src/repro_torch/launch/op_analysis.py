@@ -18,10 +18,20 @@ be multiplied in, as ``hlo_analysis`` must for a scan.
   eager PyTorch fuses nothing.  Views, allocations and metadata ops are
   free; a kernel call counts its bound's bytes.
 * ``collective_bytes``, ``collective_by_kind``, ``collective_count`` - the
-  ``_c10d_functional`` collectives, each by the bytes of its result, as
+  ``_c10d_functional`` collectives and DTensor's ``_dtensor``
+  ``shard_dim_alltoall``, each by the bytes of its result, as
   ``hlo_analysis`` counts a collective's result shape; the bytes of those
   whose group spans more than one node of ``node_size`` ranks are also in
-  ``collective_bytes_across_nodes``.
+  ``collective_bytes_across_nodes``; ``largest_collective``, the bytes of
+  the largest one (a tensor no rank should send whole, such as an
+  embedding table, shows here); ``scoped``, the collectives sent inside
+  a function wrapped by ``OpCounter.scope``, by kind and by count, under
+  its name.  A shard-to-shard redistribution is
+  one all-to-all, as DTensor sends it on a "cuda" mesh: on a "cpu" mesh
+  (the dry run's), where DTensor would send an all-gather of the group's
+  size times the bytes and keep a chunk, the counter hands DTensor's
+  ``shard_dim_alltoall`` the op the "cuda" mesh dispatches, so that both
+  count the same.
 * ``peak_bytes`` - the most bytes of storage alive at once: the tensors held
   when the counter starts (``hold``), then every storage an op returns,
   until it is freed; a tensor on the "meta" device holds none, and the
@@ -65,8 +75,25 @@ FREE = {aten.empty.memory_format, aten.empty_strided.default,
 # wrappers around them move nothing
 COLLECTIVES = {"all_gather_into_tensor": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
-               "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+               "all_reduce": "all-reduce", "all_to_all_single": "all-to-all",
+               "shard_dim_alltoall": "all-to-all"}
 NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's ``shard_dim_alltoall`` as it runs on a "cuda" mesh, on any
+    mesh: the one ``_dtensor`` op, where a "cpu" mesh would all-gather."""
+    return torch.ops._dtensor.shard_dim_alltoall(
+        input, gather_dim, shard_dim, mesh.get_group(mesh_dim).group_name)
+
+
+def _alltoall_sites():
+    """The modules of DTensor that call ``shard_dim_alltoall`` by name."""
+    import importlib
+    for name in ("_collective_utils", "placement_types"):
+        mod = importlib.import_module(f"torch.distributed.tensor.{name}")
+        if hasattr(mod, "shard_dim_alltoall"):
+            yield mod
 
 
 @dataclass
@@ -78,6 +105,8 @@ class Costs:
     collective_by_kind: Dict[str, float] = field(default_factory=dict)
     collective_count: Dict[str, int] = field(default_factory=dict)
     collective_bytes_across_nodes: float = 0.0
+    largest_collective: int = 0
+    scoped: Dict[str, dict] = field(default_factory=dict)
     peak_bytes: int = 0
     largest_bytes: int = 0
     kernel_calls: Dict[str, int] = field(default_factory=dict)
@@ -118,6 +147,7 @@ class OpCounter(TorchDispatchMode):
         self._counts: Counter = Counter()
         self._by_kind = defaultdict(float)
         self._calls: Counter = Counter()
+        self._scope = None                   # the name ``scope`` runs under
 
     # ------------------------------------------------------------ storages
     def hold(self, tensors) -> None:
@@ -167,6 +197,17 @@ class OpCounter(TorchDispatchMode):
         self._flops[_dtype_name(dtype)] += flops
         self.costs.hbm_bytes += nbytes
 
+    def scope(self, name: str, fn):
+        """``fn``, whose collectives are also counted under ``name`` in
+        ``costs.scoped``: {"by_kind": bytes, "count": calls}."""
+        def run(*args, **kwargs):
+            outer, self._scope = self._scope, name
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self._scope = outer
+        return run
+
     # ------------------------------------------------------------ dispatch
     def __enter__(self):
         # entered again for each op it decomposes: set up the first time
@@ -184,12 +225,22 @@ class OpCounter(TorchDispatchMode):
                     self._quiet -= 1
             prop._propagate_tensor_meta_non_cached = quiet
             self._prop = prop
+            self._alltoall = [(m, m.shard_dim_alltoall)
+                              for m in _alltoall_sites()]
+            if not self._alltoall:
+                raise RuntimeError("no module of DTensor calls "
+                                   "shard_dim_alltoall by name: a shard-to-"
+                                   "shard move would count as an all-gather")
+            for m, _ in self._alltoall:
+                m.shard_dim_alltoall = _shard_dim_alltoall
         return super().__enter__()
 
     def __exit__(self, *exc):
         self._depth -= 1
         if self._depth == 0:
             del self._prop._propagate_tensor_meta_non_cached
+            for m, fn in self._alltoall:
+                m.shard_dim_alltoall = fn
             c = self.costs
             c.flops_by_dtype = dict(self._flops)
             c.flops = sum(self._flops.values())
@@ -225,6 +276,9 @@ class OpCounter(TorchDispatchMode):
             self._track(o, same_as)
         if func in FREE or func.is_view:
             return out
+        if ns == "_dtensor" and name == "shard_dim_alltoall":
+            self._collective(COLLECTIVES[name], func, args, kwargs, outs)
+            return out
         if ns == "_c10d_functional":
             if name not in NOT_COLLECTIVES:
                 if name not in COLLECTIVES:
@@ -243,20 +297,30 @@ class OpCounter(TorchDispatchMode):
 
     def _collective(self, kind: str, func, args, kwargs, outs) -> None:
         nbytes = sum(map(_nbytes, outs))
+        self.costs.largest_collective = max(self.costs.largest_collective,
+                                            nbytes)
         self._counts[kind] += 1
         self._by_kind[kind] += nbytes
+        if self._scope is not None:
+            s = self.costs.scoped.setdefault(self._scope,
+                                             {"by_kind": {}, "count": {}})
+            s["by_kind"][kind] = s["by_kind"].get(kind, 0) + nbytes
+            s["count"][kind] = s["count"].get(kind, 0) + 1
         named = dict(zip((a.name for a in func._schema.arguments), args))
         group = {**named, **kwargs}["group_name"]
         if self._across_nodes(group):
             self.costs.collective_bytes_across_nodes += nbytes
 
-    def _across_nodes(self, group: str) -> bool:
+    def _across_nodes(self, group) -> bool:
+        """Whether ``group`` (its name, or the group) spans nodes."""
         across = self._groups.get(group)
         if across is None:
             import torch.distributed as dist
             from torch.distributed.distributed_c10d import \
                 _resolve_process_group
-            ranks = dist.get_process_group_ranks(_resolve_process_group(group))
+            pg = _resolve_process_group(group) if isinstance(group, str) \
+                else group
+            ranks = dist.get_process_group_ranks(pg)
             across = self._groups[group] = \
                 len({r // self.node_size for r in ranks}) > 1
         return across

@@ -169,7 +169,8 @@ def _abstract_leaf(shape, dtype, mesh, placements) -> torch.Tensor:
     from this rank's shard alone, never the whole tensor."""
     if mesh is None:
         return torch.empty(shape, dtype=dtype)
-    return sharded(torch.empty, shape, dtype, mesh, placements)
+    return sharded(torch.empty, shape, dtype, mesh, placements,
+                   device=mesh.device_type)
 
 
 def _abstract(specs, placements, mesh):
@@ -292,7 +293,9 @@ def trace_cell(arch_cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, **kw):
     the arguments and the outputs that alias none: the rest that is alive
     at the peak), and beside them ``peak_bytes``, ``state_bytes`` (the
     first argument: the train state, or the parameters) and
-    ``largest_bytes`` (the largest storage the step held).
+    ``largest_bytes`` (the largest storage the step held).  The
+    collectives of the step's embedding lookups (``Model.lookup``) are also
+    in ``costs.scoped["lookup"]``.
     """
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -303,8 +306,10 @@ def trace_cell(arch_cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, **kw):
         ins = _local_leaves(args)
         counter = OpCounter(node_size=H100["node_size"])
         counter.hold(ins)
+        model.lookup = counter.scope("lookup", model.lookup)
         with counter:
             out = fn(*args)
+        del model.lookup
         held = {t.untyped_storage()._cdata for t in ins}
         outs = _local_leaves(out)
         state = _local_leaves(args[0])
@@ -319,3 +324,4 @@ def trace_cell(arch_cfg: ModelConfig, shape_cfg: ShapeConfig, mesh, **kw):
               "state_bytes": nbytes(state),
               "largest_bytes": counter.costs.largest_bytes}
     return counter.costs, memory, model, rules
+

@@ -82,17 +82,22 @@ def mlp(params: dict, x: torch.Tensor, variant: str) -> torch.Tensor:
 
 # ------------------------------------------------------------- embeddings
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """``table[tokens]``.  A DTensor table whole or split over the vocab
-    only is looked up by each rank on its own shard for its own tokens, an
-    id outside the shard giving zeros, and the lookup is the sum over the
-    mesh dims that split the vocab (each row from the one rank that holds
-    it): the masked partial sum DTensor's embedding makes, built here on
-    local tensors.  The table's gradient is each rank's rows summed over the
-    mesh dims that split the tokens.  DTensor's own lookup places its
-    backward (an ``index_put`` with split indices) on torch 2.11 neither
+    """``table[tokens]``.  A DTensor table is looked up by each rank on its
+    own shard for its own tokens, with or without a gradient: made whole
+    along d first where a mesh dim splits it there (the all-gather of the
+    rank's vocab shard that its fsdp spec implies; ``Model.compute_params``
+    has made it already), then, where a mesh dim splits the vocab, an id
+    outside the rank's shard gives zeros and the rows are a pending sum
+    (``Partial``) over those dims, reduced where they are next used (each
+    row comes from the one rank that holds it): the masked partial sum
+    DTensor's embedding makes, built here on local tensors.  The table's
+    gradient is each rank's rows summed over the mesh dims that split the
+    tokens.  DTensor's own lookup moves a vocab-split table to a split
+    along d (an all-to-all of the whole table, every call), and on torch
+    2.11 places its backward (an ``index_put`` with split indices) neither
     with a whole table nor with a vocab-split one where a batch dim is
-    split.  A vocab-split table with no gradient to take (decode's), and a
-    table split otherwise, take DTensor's own lookup."""
+    split.  Tokens split on a mesh dim that splits the vocab, which no rule
+    makes, raise."""
     if not is_dtensor(table):
         return table[tokens]
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
@@ -100,11 +105,11 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     tok = list(tokens.placements) if is_dtensor(tokens) else \
         [Replicate()] * mesh.ndim
     vocab = [p == Shard(0) for p in table.placements]
-    if any(not (v or p.is_replicate()) or (v and not t.is_replicate())
-           for v, p, t in zip(vocab, table.placements, tok)) or \
-            (any(vocab) and not (table.requires_grad
-                                 and torch.is_grad_enabled())):
-        return table[tokens]
+    if any(v and not t.is_replicate() for v, t in zip(vocab, tok)):
+        raise ValueError(f"tokens placed {tok} on a mesh dim that splits the "
+                         f"vocab of a table placed {list(table.placements)}")
+    table = distribute(table, mesh, [p if v else Replicate() for v, p in
+                                     zip(vocab, table.placements)])
     grad = [p if v else Partial() if t.is_shard() else Replicate()
             for v, p, t in zip(vocab, table.placements, tok)]
     local = table.to_local(grad_placements=grad)

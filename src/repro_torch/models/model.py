@@ -97,6 +97,12 @@ def _unbind(tree):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+# decode's hidden state (B, 1, d) under a mesh: its d split over "model",
+# as the layers keep it (each layer's output projection is reduce-scattered
+# onto it); the embedding rows' pending sum is reduced onto it
+DECODE_AXES = ("batch", None, "model")
+
+
 class Model:
     def __init__(self, cfg: ModelConfig, shard_fn: Callable = Identity,
                  attn_impl: str = "kernel") -> None:
@@ -297,19 +303,32 @@ class Model:
         return h * torch.tensor(math.sqrt(self.cfg.d_model), dtype=h.dtype,
                                 device=h.device)
 
-    def _embed_tokens(self, params, batch):
-        cfg = self.cfg
-        tokens = batch["tokens"].long()
-        if cfg.num_codebooks:                           # (B, K, S)
+    def lookup(self, table, tokens, axes=("batch", None, None)):
+        """Token embeddings, scaled: tokens (B, S), or (B, K, S) summed over
+        the K codebook tables -> (B, S, d), placed by the logical ``axes``
+        (under a mesh, the rows' pending sum over the vocab's split reduced
+        onto them); ``table`` as the model computes with it."""
+        tokens = tokens.long()
+        if self.cfg.num_codebooks:
             h = None
-            for k in range(cfg.num_codebooks):
-                e = embed(params["embed"][k], tokens[:, k])
+            for k in range(self.cfg.num_codebooks):
+                e = embed(table[k], tokens[:, k])
                 h = e if h is None else h + e
         else:
-            h = embed(params["embed"], tokens)          # (B, S, d)
-        h = self._scale_embeddings(h)
+            h = embed(table, tokens)
+        return self.shard(self._scale_embeddings(h), axes)
+
+    def _embed_tokens(self, params, batch):
+        cfg = self.cfg
+        h = self.lookup(params["embed"], batch["tokens"])
         if cfg.num_image_tokens and "image_embeds" in batch:
-            img = batch["image_embeds"].to(h.dtype) @ params["img_proj"]
+            # on each rank's batch shard: the cat's backward may hand the
+            # image rows' gradient split over the tokens on "model", and the
+            # projection's weight gradient would then contract over a batch
+            # and token split merged into one strided dim, which DTensor
+            # places only by reading values
+            img = batch_call(lambda x, w: x.to(w.dtype) @ w,
+                             batch["image_embeds"], params["img_proj"])
             h = torch.cat([img, h[:, cfg.num_image_tokens:]], dim=1)
         return self.shard(h, ("batch", None, None))
 
@@ -425,7 +444,12 @@ class Model:
         cfg = self.cfg
         p = params["mtp"]
         tokens, targets = batch["tokens"], batch["targets"]
-        e_next = embed(params["embed"], tokens[:, 1:].long())
+        # the rows' pending sum over the vocab's split reduced here: carried
+        # into the block, it left the latent projection's weight gradient a
+        # contraction over a strided split, which DTensor places only by
+        # reading values
+        e_next = self.shard(embed(params["embed"], tokens[:, 1:].long()),
+                            ("batch", None, None))
         h_in = torch.cat([rmsnorm(p["ln"], h[:, :-1], cfg.norm_eps), e_next],
                          dim=-1)
         h_in = (h_in @ p["proj"]).to(h.dtype)
@@ -711,14 +735,8 @@ class Model:
         """
         cfg = self.cfg
         params = self.compute_params(params)
-        if cfg.num_codebooks:
-            h = None
-            for k in range(cfg.num_codebooks):
-                e = embed(params["embed"][k], tokens[:, k][:, None])
-                h = e if h is None else h + e
-        else:
-            h = embed(params["embed"], tokens[:, None])     # (B,1,d)
-        h = self._scale_embeddings(h)
+        h = self.lookup(params["embed"], tokens[..., None],
+                        DECODE_AXES)                    # (B,1,d)
 
         if cfg.family == "ssm":
             for i in range(cfg.num_layers):

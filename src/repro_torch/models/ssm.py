@@ -30,7 +30,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (batch_call, local_call,
+from repro_torch.distributed.sharding import (batch_call, distribute,
+                                              is_dtensor, local_call,
                                               reduce_pending, unshard)
 
 from .param import ParamSpec
@@ -212,10 +213,18 @@ def ssd_reference(x, dt, A, Bm, Cm, init_state=None):
 def ssd_per_shard(fn, x, dt, A, Bm, Cm):
     """``fn(x, dt, A, Bm, Cm)``, an SSD scan -> (y, final state), on each
     rank's shards under a mesh: the batch and the heads split, each rank's
-    heads with the B/C groups they read (the scan needs no exchange).  As
-    DTensor ops, the scan's einsums would merge the data-split batch and the
-    model-split heads into one strided-split dim, whose product DTensor
+    heads with the B/C groups they read (the scan needs no exchange).  x
+    comes out of the convolution whole along its channels; its heads are
+    split over the mesh dims that split A's (``A_log``'s spec puts them on
+    "model"), so that each rank scans its own heads and not all of them.
+    As DTensor ops, the scan's einsums would merge the data-split batch and
+    the model-split heads into one strided-split dim, whose product DTensor
     places only by reading values (a fake tensor has none)."""
+    if is_dtensor(x) and is_dtensor(A):
+        from torch.distributed.tensor import Shard
+        x = distribute(x, x.device_mesh, [
+            Shard(2) if p.is_replicate() and a == Shard(0) else p
+            for p, a in zip(x.placements, A.placements)])
     return local_call(lambda x, Bm, Cm, dt, A: fn(x, dt, A, Bm, Cm),
                       x, (Bm, Cm), ((dt, 2), (A, 0)), q_dim=2, group_dim=2,
                       outs=((0, None), (0, 1)))

@@ -75,13 +75,19 @@ def prompts() -> np.ndarray:
 
 def served(arch: str, model_axis: int) -> np.ndarray:
     """A ``Server``'s greedy tokens for ``prompts()``; for a family with
-    codebooks, which ``generate`` does not take, its decode logits over 6
-    steps of seeded (B, K) tokens."""
+    codebooks, which ``generate`` does not take, its decode logits."""
     srv = Server(serve_job(arch, model_axis))
-    K = srv.cfg.num_codebooks
-    if not K:
+    if not srv.cfg.num_codebooks:
         return srv.generate(prompts())
-    tokens = np.random.default_rng(6).integers(0, 512, (2, K, 6))
+    return decode_logits(srv)
+
+
+def decode_logits(srv: Server) -> np.ndarray:
+    """``srv``'s decode logits over 6 steps of seeded (B,) or (B, K)
+    tokens, from an empty cache."""
+    K = srv.cfg.num_codebooks
+    tokens = np.random.default_rng(6).integers(0, 512, (2, K, 6) if K
+                                               else (2, 6))
     cache = srv.model.init_cache(2, 6, "cpu")
     if srv.mesh is not None:
         cache = srv._place(srv.model.cache_specs(2, 6), cache)
@@ -205,7 +211,8 @@ def mla_decode_on(mesh, rules, pos: int,
 
 
 # ssd_per_shard with one B/C group on a model axis of 4: each rank's two
-# heads read copies of the group (the kernel's G = its local heads)
+# heads all read the one group, which the rank is handed once (the kernel's
+# G = 1)
 SSD = dict(B=2, S=64, nh=8, P=16, G=1, N=16, chunk=32)
 
 
@@ -254,6 +261,88 @@ def ssd_on(mesh) -> dict:
             "grads": {n: t.grad.full_tensor().numpy()
                       for n, t in placed.items()},
             "local_groups": groups}
+
+
+# GQA on (1, 4) beyond the trap: heads that all read one KV group (H=8,
+# Hkv=1: each rank handed the one group head) and heads that straddle
+# groups (H=12, Hkv=3: a copy for each local head), under every impl
+GQA_GROUPS = {"one_group": dict(H=8, Hkv=1), "straddle": dict(H=12, Hkv=3)}
+GQA_IMPLS = ("kernel", "torch", "torch_pairs")
+# served and prefilled on (1, 4) and (2, 2) under the serving rules
+MESH_SERVE_ARCHS = ("gemma-2b", "deepseek-v3-671b", "mamba2-1.3b")
+
+
+def gqa_group_inputs(H: int, Hkv: int):
+    g = torch.Generator().manual_seed(4)
+    B, S, D = GQA["B"], GQA["S"], GQA["D"]
+    return (torch.randn(B, S, H, D, generator=g),
+            torch.randn(B, S, Hkv, D, generator=g),
+            torch.randn(B, S, Hkv, D, generator=g))
+
+
+def gqa_groups_on(mesh) -> dict:
+    """``gqa_attend`` of each of ``GQA_GROUPS`` placed by the train rules on
+    ``mesh``, under each impl: the output and the gradients of q, k and v
+    whole, and the KV heads each call of the attention was handed."""
+    handed = []
+
+    def recording(fn):
+        def call(q, k, v, **kw):
+            handed.append(k.shape[2])
+            return fn(q, k, v, **kw)
+        return call
+    real = {n: getattr(attn, n) for n in ("flash_attention",
+                                          "blockwise_attention")}
+    rules, ax, out = make_rules("train"), ("batch", None, "heads", None), {}
+    try:
+        for n, fn in real.items():
+            setattr(attn, n, recording(fn))
+        for name, heads in GQA_GROUPS.items():
+            cfg = gqa_config().with_(num_heads=heads["H"],
+                                     num_kv_heads=heads["Hkv"])
+            for impl in GQA_IMPLS:
+                handed.clear()
+                q, k, v = (distribute(t, mesh, placements_for(spec_for(
+                    tuple(t.shape), ax, mesh, rules), mesh)).requires_grad_()
+                    for t in gqa_group_inputs(**heads))
+                o = attn.gqa_attend(q, k, v, cfg, impl=impl)
+                (o * o).sum().backward()
+                out[name, impl] = {
+                    "out": o.full_tensor().detach().numpy(),
+                    **{f"d{n}": t.grad.full_tensor().numpy()
+                       for n, t in (("q", q), ("k", k), ("v", v))},
+                    "handed": list(handed),
+                    "kv_placements": str(k.placements)}
+    finally:
+        for n, fn in real.items():
+            setattr(attn, n, fn)
+    return out
+
+
+def prefill_tokens() -> np.ndarray:
+    return np.random.default_rng(7).integers(0, 512, (4, 8))
+
+
+def prefilled(arch: str, mesh=None) -> dict:
+    """Smoke ``arch``'s ``Model.prefill`` of ``prefill_tokens()`` under the
+    prefill rules on ``mesh`` (None: one process), as a meshed ``Server``
+    runs a step: the last token's logits and the cache, whole."""
+    from repro_torch.distributed.sharding import make_shard_fn
+    cfg = reduce_for_smoke(get_arch(arch))
+    rules = make_rules("prefill")
+    model = build_model(cfg, shard_fn=make_shard_fn(mesh, rules))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(prefill_tokens())
+    if mesh is not None:
+        params = place_tree(params, sharding_for_specs(
+            model.param_specs(), mesh, rules), mesh)
+        tokens = model.shard(tokens, ("batch", None))
+    with torch.no_grad(), model.spmd():
+        logits, cache = model.prefill(params, {"tokens": tokens})
+    full = lambda t: (t.full_tensor() if hasattr(t, "full_tensor") else t
+                      ).float().numpy()
+    return {"logits": full(logits),
+            "cache": {k: full(v) for k, v in named_leaves(cache)}}
 
 
 def gqa_inputs():
@@ -344,6 +433,14 @@ def task_world4(rank, out, store_dir):
         mesh22, make_rules("decode"), pos, ("batch", None, "model"))
         for pos in MLA_POSITIONS}
     out["ssd_per_shard"] = ssd_on(mesh)
+    out["gqa_groups"] = gqa_groups_on(mesh)
+    # the serving rules on (1, 4) and (2, 2): each rank looks its tokens
+    # up in its own vocab shard
+    out["decode_1x4"] = {a: decode_logits(Server(serve_job(a, 4)))
+                         for a in MESH_SERVE_ARCHS}
+    out["serve_1x4"] = {a: served(a, 4) for a in MESH_SERVE_ARCHS}
+    out["prefill"] = {(shape, a): prefilled(a, m) for a in MESH_SERVE_ARCHS
+                      for shape, m in (((1, 4), mesh), ((2, 2), mesh22))}
     mesh3 = init_device_mesh("cpu", (2, 2, 1),
                              mesh_dim_names=("pod", "data", "model"))
     long = make_rules("decode", long_context=True)

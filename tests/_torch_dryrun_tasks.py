@@ -230,10 +230,17 @@ KEY_SPLIT_ARCHS = ("qwen2-72b", "deepseek-v3-671b")
 KEY_SPLIT_T = (64, 128)
 
 
+def lookup_counts(costs) -> dict:
+    """The collectives of a traced step's embedding lookups, by kind and
+    count."""
+    return costs.scoped.get("lookup", {"by_kind": {}, "count": {}})
+
+
 def task_key_split(shape) -> dict:
     """Each arch's smoke decode step under the decode rules and under
-    --seq-shard's, at each of ``KEY_SPLIT_T``: the collectives it sends,
-    and the widths that say what the token's operands are."""
+    --seq-shard's, at each of ``KEY_SPLIT_T``: the collectives it sends and
+    the largest one; the widths that say what the token's operands are;
+    and its embedding lookups', in decode and in a train step."""
     from repro_torch.launch.steps import trace_cell
     mesh = fake_mesh(shape)
     out = {}
@@ -245,13 +252,19 @@ def task_key_split(shape) -> dict:
                   cfg.head_dim]
         if cfg.mla is not None:
             widths += [cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim]
-        out[arch] = {"widths": widths}
+        out[arch] = {"widths": widths,
+                     "table": [cfg.padded_vocab, cfg.d_model, 4],
+                     "lookup_train": lookup_counts(
+                         trace_cell(cfg, SMOKE_TRAIN, mesh)[0])}
         for T in KEY_SPLIT_T:
             sc = ShapeConfig("seq", T, SEQ_SHAPE.global_batch, "decode")
             for name, seq in (("default", False), ("seq_shard", True)):
                 costs = trace_cell(cfg.with_(seq_shard_attn=seq), sc,
                                    mesh)[0]
                 out[arch][f"{name}_{T}"] = costs.collective_by_kind
+                out[arch][f"{name}_{T}_largest"] = costs.largest_collective
+                if not seq:
+                    out[arch][f"lookup_{T}"] = lookup_counts(costs)
     return out
 
 
@@ -272,7 +285,12 @@ def task_allreduce() -> dict:
         counter = OpCounter()
         with counter:
             (x @ w).redistribute(mesh, [Replicate()])
-    return counter.costs.to_json()
+        # a shard-to-shard redistribution on this "cpu" mesh
+        moved = OpCounter()
+        with moved:
+            y = x.redistribute(mesh, [Shard(0)])
+    return {**counter.costs.to_json(), "alltoall": {
+        **moved.costs.to_json(), "local": list(y.to_local().shape)}}
 
 
 def task_prefill_mesh() -> dict:
@@ -331,13 +349,18 @@ def task_mesh_share() -> dict:
     traced = lambda cfg, shape: [
         trace_cell(cfg, shape, mesh)[1][k]
         for k in ("peak_bytes", "largest_bytes")]
-    out = {"gemma": traced(gemma, SHARE_GEMMA_SHAPE)}
+    costs, memory, _, _ = trace_cell(gemma, SHARE_GEMMA_SHAPE, mesh)
+    out = {"gemma": [memory["peak_bytes"], memory["largest_bytes"]]}
     granite = reduce_for_smoke(get_arch("granite-moe-1b-a400m"))
     granite = granite.with_(moe=dataclasses.replace(granite.moe,
                                                     num_experts=16))
     out["granite"] = traced(granite, SHARE_GRANITE_SHAPE)
     out["granite_moe"] = [granite.moe.num_experts, granite.moe.top_k,
                           granite.d_model]
+    out["lookup"] = {"train": lookup_counts(costs), "decode": lookup_counts(
+        trace_cell(gemma, ShapeConfig("share", 64, 256, "decode"),
+                   mesh)[0])}
+    out["lookup_widths"] = [gemma.padded_vocab, gemma.d_model]
     rules = make_rules("prefill")
     with FakeTensorMode():
         model = build_model(gemma, shard_fn=make_shard_fn(mesh, rules))

@@ -460,17 +460,17 @@ def _same_mla_decode(got, pos: int, tol: float) -> None:
 
 def test_ssd_per_shard_with_one_group_on_a_model_axis_of_4(world4):
     """mamba2's one B/C group on a (1, 4) mesh: ``ssd_per_shard`` hands
-    each rank's scan its two heads with one copy of the group each (G = 2,
-    the local heads); y and the final state match JAX's ``ssd_chunked`` to
-    ``ssd``'s 2e-4, the five gradients (the copies' summed back into the
-    one group, and over the ranks) to 1e-4."""
+    each rank's scan its two heads and the one group they both read, once
+    (G = 1; it was a copy of the group for each local head, G = 2); y and
+    the final state match JAX's ``ssd_chunked`` to ``ssd``'s 2e-4, the five
+    gradients (the group's summed over the ranks) to 1e-4."""
     import jax
 
     from repro.models.ssm import ssd_chunked as jax_ssd_chunked
     got = world4[0][0]["ssd_per_shard"]
     c = tasks.SSD
     assert [r["ssd_per_shard"]["local_groups"] for r in world4[0]] == \
-        [[c["nh"] // 4]] * 4
+        [[1]] * 4
     inp = tasks.ssd_inputs()
     names = ("x", "dt", "A", "Bm", "Cm")
 
@@ -485,6 +485,75 @@ def test_ssd_per_shard_with_one_group_on_a_model_axis_of_4(world4):
     for n, g in zip(names, grads):
         np.testing.assert_allclose(got["grads"][n], np.asarray(g), atol=1e-4,
                                    rtol=1e-4, err_msg=n)
+
+
+@pytest.mark.parametrize("impl", tasks.GQA_IMPLS)
+@pytest.mark.parametrize("name", sorted(tasks.GQA_GROUPS))
+def test_gqa_hands_each_rank_its_kv_groups_on_a_model_axis_of_4(world4,
+                                                                name, impl):
+    """(1, 4), the KV heads whole (they do not divide "model"): where a
+    rank's query heads all read one group (H=8, Hkv=1) its attention is
+    handed that one KV head; where they straddle groups (H=12, Hkv=3), a
+    copy for each of its 3 heads.  Forward and gradients against one
+    process and JAX's ``xla`` (``xla_pairs``) branch to 1e-5."""
+    import jax
+
+    from repro.models import attention as jattn
+    heads = tasks.GQA_GROUPS[name]
+    want_handed = 1 if name == "one_group" else heads["H"] // 4
+    for rank in world4[0]:
+        got = rank["gqa_groups"][name, impl]
+        assert got["handed"] == [want_handed], (name, impl, got["handed"])
+        assert "Shard(dim=2)" not in got["kv_placements"]
+    got = world4[0][0]["gqa_groups"][name, impl]
+    q, k, v = (t.requires_grad_() for t in tasks.gqa_group_inputs(**heads))
+    cfg = tasks.gqa_config().with_(num_heads=heads["H"],
+                                   num_kv_heads=heads["Hkv"])
+    o = attn.gqa_attend(q, k, v, cfg, impl=impl)
+    (o * o).sum().backward()
+    jcfg = _jax_cfg().with_(num_heads=heads["H"], num_kv_heads=heads["Hkv"])
+    jimpl = "xla_pairs" if impl == "torch_pairs" else "xla"
+
+    def loss(q, k, v):
+        o = jattn.gqa_attend(q, k, v, jcfg, impl=jimpl)
+        return (o * o).sum(), o
+    (_, jo), jgrads = jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                         has_aux=True)(
+        *(jnp.asarray(t.detach().numpy()) for t in (q, k, v)))
+    for want, grads in ((o.detach().numpy(), (q.grad, k.grad, v.grad)),
+                        (np.asarray(jo), jgrads)):
+        assert _close(got["out"], want, 1e-5), (name, impl)
+        for n, g in zip(("dq", "dk", "dv"), grads):
+            assert _close(got[n], np.asarray(g), 1e-5), (name, impl, n)
+
+
+@pytest.mark.parametrize("arch", tasks.MESH_SERVE_ARCHS)
+def test_server_on_a_model_axis_of_4_gives_the_meshless_decode(world4, arch):
+    """The serving rules on (1, 4) split the embedding table over its vocab
+    only: each rank looks its tokens up in its own shard (DTensor's lookup
+    moved the whole table to a split along d every token).  Six decode
+    steps' logits within 1e-5 of the meshless server's, greedy tokens
+    equal on every rank."""
+    results, ref, _ = world4
+    want = tasks.decode_logits(tasks.Server(tasks.serve_job(arch, 1)))
+    assert _close(results[0]["decode_1x4"][arch], want, 1e-5), arch
+    for out in results:
+        np.testing.assert_array_equal(out["serve_1x4"][arch],
+                                      ref[arch, "serve"], err_msg=arch)
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("arch", tasks.MESH_SERVE_ARCHS)
+def test_prefill_on_a_mesh_gives_the_meshless_outputs(world4, arch, mesh):
+    """``Model.prefill`` under the prefill rules, the lookup on each rank's
+    vocab shard with no gradient: the last token's logits and every cache
+    leaf within 1e-5 of one process's."""
+    got = world4[0][0]["prefill"][mesh, arch]
+    want = tasks.prefilled(arch)
+    assert _close(got["logits"], want["logits"], 1e-5), arch
+    assert sorted(got["cache"]) == sorted(want["cache"])
+    for k, w in want["cache"].items():
+        assert _close(got["cache"][k], w, 1e-5), (arch, k)
 
 
 @pytest.mark.parametrize("impl,pos,window", tasks.DECODE_CASES_2D)

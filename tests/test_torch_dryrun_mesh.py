@@ -185,7 +185,11 @@ def test_decode_on_a_key_split_cache_gathers_no_cache(results):
     and, each layer, only the new token's q, k and v made whole along the
     key split; the cache stays in place (it was all-gathered each layer).
     The merge adds one all-reduce of the lse max and one of the weighted
-    outputs with their weights, (B/data, H) and (B/data, H, D + 1)."""
+    outputs with their weights, (B/data, H) and (B/data, H, D + 1), and at
+    most those buffers of one layer to the decode rules' peak (a gathered
+    cache would add a layer's whole K and V, 32,768 B).  Both peaks were
+    the embedding table's re-lay (1,513,992 B) while the lookup moved the
+    whole table, which hid the merge's buffers."""
     from _torch_dryrun_tasks import SEQ_KV_HEADS
     got = _get(results, "seq_shard")
     default, seq = got["default"], got["seq_shard"]
@@ -199,7 +203,8 @@ def test_decode_on_a_key_split_cache_gathers_no_cache(results):
         L * B_loc * H * (1 + D + 1) * fp32
     assert seq["kernel_calls"] == default["kernel_calls"] == \
         {"decode_attention": L}
-    assert seq["peak_bytes"] <= default["peak_bytes"]
+    merge = B_loc * H * (D + 2) * fp32
+    assert seq["peak_bytes"] <= default["peak_bytes"] + merge
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4"])
@@ -240,8 +245,11 @@ def test_mla_decode_under_the_decode_rules_reduces_no_score(results, mesh):
     (B/data, H, rope) query, onto the absorbed query's head split, it
     leaves the (B/data, H, T) scores unreduced: a smoke deepseek-v3 decode
     step reduce-scatters the same bytes at both cache lengths, as many as
-    under --seq-shard, whose count does not change (8,740 B on (2, 2)).
-    The parent's step reduce-scattered its scores, 16 B a position a layer
+    under --seq-shard, whose count does not change (9,252 B on (2, 2): the
+    8,740 B of the layers and, since the embedding rows are looked up in
+    each rank's vocab shard, their reduce-scatter onto decode's hidden
+    state, (B/data, 1, d/model) fp32 = 512 B).  The step before the score
+    reduction moved reduce-scattered its scores, 16 B a position a layer
     on (2, 2): 11,812 B at T=64, 15,908 B at T=128."""
     from _torch_dryrun_tasks import KEY_SPLIT_T
     got = _get(results, f"key_split_{mesh}")["deepseek-v3-671b"]
@@ -250,7 +258,73 @@ def test_mla_decode_under_the_decode_rules_reduces_no_score(results, mesh):
         assert got[f"default_{T}"]["reduce-scatter"] == \
             got[f"seq_shard_{T}"]["reduce-scatter"], T
         if mesh == "2x2":
-            assert got[f"seq_shard_{T}"]["reduce-scatter"] == 8740
+            assert got[f"seq_shard_{T}"]["reduce-scatter"] == 9252
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "1x4"])
+@pytest.mark.parametrize("arch", ["qwen2-72b", "deepseek-v3-671b"])
+def test_lookup_moves_only_the_rows_reduction(results, arch, mesh):
+    """The embedding lookup of a real train and decode step (counted inside
+    ``Model.lookup``), each rank's tokens in its own vocab shard: the table
+    comes in whole along d (``compute_params``' fsdp gather of the rank's
+    vocab shard, counted with the step), so the lookup sends only the
+    reduction of the looked-up rows: an all-reduce of a train step's
+    (B/data, S, d), a reduce-scatter of decode's (B/data, 1, d) onto its
+    hidden state's split of d over "model".  DTensor's own lookup moved the
+    whole table (the decode rules' vocab split) to a split along d."""
+    from _torch_dryrun_tasks import KEY_SPLIT_T, SEQ_SHAPE, SMOKE_TRAIN
+    got = _get(results, f"key_split_{mesh}")[arch]
+    _, d, fp32 = got["table"]
+    data, model = (2, 2) if mesh == "2x2" else (1, 4)
+    B = SMOKE_TRAIN.global_batch // data
+    assert got["lookup_train"]["by_kind"] == {
+        "all-reduce": B * SMOKE_TRAIN.seq_len * d * fp32}
+    B = SEQ_SHAPE.global_batch // data
+    for T in KEY_SPLIT_T:
+        assert got[f"lookup_{T}"]["by_kind"] == {
+            "reduce-scatter": B * d // model * fp32}, T
+        assert set(got[f"lookup_{T}"]["count"].values()) == {1}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-72b", "deepseek-v3-671b"])
+def test_decode_step_moves_no_table_bytes_on_a_model_axis_of_4(results,
+                                                               arch):
+    """A smoke decode step on the fake (1, 4) group, under both cache
+    rules and at both cache lengths: no collective it sends carries as
+    many bytes as one rank's vocab shard of the embedding table (DTensor's
+    lookup re-laid the whole table, 262,144 B here, every token)."""
+    from _torch_dryrun_tasks import KEY_SPLIT_T
+    got = _get(results, "key_split_1x4")[arch]
+    V, d, fp32 = got["table"]
+    for T in KEY_SPLIT_T:
+        for rule in ("default", "seq_shard"):
+            assert 0 < got[f"{rule}_{T}_largest"] < V // 4 * d * fp32, \
+                (rule, T)
+
+
+def test_lookup_on_the_production_mesh(results):
+    """Smoke gemma-2b (its vocabulary 4096) on (16, 16): a train step's and
+    a decode step's lookup reduce the rows and send nothing else; the
+    table came in whole along d from ``compute_params``' fsdp gather of
+    the rank's vocab shard over "data"."""
+    got = _get(results, "mesh_share")
+    d = got["lookup_widths"][1]
+    assert got["lookup"]["train"]["by_kind"] == {
+        "all-reduce": 256 // 16 * 64 * d * 4}
+    assert got["lookup"]["decode"]["by_kind"] == {
+        "reduce-scatter": 256 // 16 * d // 16 * 4}
+
+
+def test_shard_to_shard_redistribution_counts_one_all_to_all(results):
+    """On a "cpu" mesh DTensor turns Shard(1) -> Shard(0) into an
+    all-gather of 8 times the bytes and a chunk; the counter counts what a
+    "cuda" mesh sends: one all-to-all of the rank's (128, 256) fp32
+    result, and no all-gather."""
+    got = _get(results, "allreduce")["alltoall"]
+    assert got["local"] == [128, 256]
+    assert got["collective_count"] == {"all-to-all": 1}
+    assert got["collective_by_kind"] == {"all-to-all": 128 * 256 * 4}
+    assert got["hbm_bytes"] == 0
 
 
 def test_collectives_detected_on_sharded_matmul(results):
