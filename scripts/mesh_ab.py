@@ -1,20 +1,24 @@
-"""Two trees of the port side by side on four cards: one served gemma-2b
-decode step on a (1, 4) mesh and one mamba2-1.3b train step on (2, 2),
-each timed and traced by every rank, for each tree in turn in one call.
+"""Trees of the port side by side on four cards: one served decode step
+of gemma-2b and one of deepseek-v3-671b (cut to 4 layers) on a (1, 4) mesh,
+and one mamba2-1.3b train step on (2, 2), each timed and traced by every
+rank, for each tree in turn in one call.
 
-    python3 scripts/mesh_ab.py --roots build/parent,.,.,build/parent
+    python3 scripts/mesh_ab.py --roots build/a,build/b,.,.,build/b,build/a
     PYTHONPATH=src python3 scripts/mesh_ab.py --cpu --roots ...  # gloo, smoke
 
 A tree is a checkout of the repository (``git archive`` of a commit unpacked
 into a directory that ``.gitignore`` lists); each runs with its own
 ``src/``, ``chip_smoke.py`` and ``scripts/mesh_smoke.py``, whose jobs and
 helpers it uses: ``[mesh_serve]``'s bf16 decode step at a 64-slot cache's
-last position (batch 4, full width and depth), and ``[mesh_train]``'s
-mamba2 step (full depth).  The kernels are built once, in parallel, and
-handed to every tree (a library's name carries its source's digest).
+last position (batch 4, full width; gemma-2b at full depth, deepseek-v3 at
+``[mesh_serve]``'s bf16 depth) and its tokens/s over one ``generate`` of
+the job's prompts, and ``[mesh_train]``'s mamba2 step (full depth).  The
+kernels are built once, in parallel, and handed to every tree (a
+library's name carries its source's digest).
 
-For each tree, one line ``[mesh_ab] {...}``: per step, the wall ms without
-the profiler (rank 0's), then from a ``torch.profiler`` trace of as many
+For each tree, one line ``[mesh_ab] {...}``: per step (``decode``,
+``deepseek``, ``train``), the wall ms without the profiler (rank 0's),
+then from a ``torch.profiler`` trace of as many
 calls on every rank: device busy ms and the NCCL kernels' share of it (the
 largest rank's), the aten ops and the collectives dispatched a call, and the
 host ops with the most self time (rank 0's).  The card's name and power
@@ -42,8 +46,9 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "mesh_ab"
-CALLS = {"decode": 4, "train": 1}
-RUN_TIMEOUT_S = {False: 150, True: 600}      # a tree's run, by --cpu
+CALLS = {"decode": 4, "deepseek": 4, "train": 1}
+STEPS = tuple(CALLS)
+RUN_TIMEOUT_S = {False: 300, True: 600}      # a tree's run, by --cpu
 
 
 def trace(fn, calls: int, device) -> dict:
@@ -88,7 +93,7 @@ def trace(fn, calls: int, device) -> dict:
 
 
 def role_rank(root: Path, cpu: bool, out: Path) -> None:
-    """One torchrun rank of one tree: its decode and its train step."""
+    """One torchrun rank of one tree: its decode and its train steps."""
     sys.path[:0] = [str(root / "scripts"), str(root / "src"), str(root)]
     import mesh_smoke as ms
     from repro_torch.core.storage import MemoryProvider
@@ -98,13 +103,21 @@ def role_rank(root: Path, cpu: bool, out: Path) -> None:
     device = init_from_env("cpu" if cpu else None)
     res = {"rank": dist.get_rank()}
     try:
-        job = ms.serve_job(ms.GEMMA, cpu, model_axis=4)
-        srv = Server(job)
-        res["mesh_decode"] = list(srv.mesh.shape)
-        res["decode"] = trace(ms._decode_step(srv, job.batch, 64),
-                              CALLS["decode"], device)
-        del srv
-        gc.collect()
+        for step, arch in (("decode", ms.GEMMA), ("deepseek", ms.DEEPSEEK)):
+            job = ms.serve_job(arch, cpu, model_axis=4)
+            layers = ms.SERVE_LAYERS.get(arch, (None, None))[1]
+            with ms.arch_override(**ms.cut(arch, layers)):
+                srv = Server(job)
+            srv.generate(ms.prompts(srv.cfg.vocab_size, job))
+            res[f"mesh_{step}"] = list(srv.mesh.shape)
+            res[step] = dict(trace(ms._decode_step(srv, job.batch, 64),
+                                   CALLS[step], device),
+                             tokens_per_s=srv.throughput(),
+                             layers=srv.cfg.num_layers)
+            del srv
+            gc.collect()
+            if not cpu:
+                torch.cuda.empty_cache()
         job = dataclasses.replace(ms.train_job(ms.MAMBA2, cpu, 2), steps=1)
         t = Trainer(job, ckpt=ms._Kept(MemoryProvider()),
                     data_ds=ms._lake(ms.MAMBA2, job, cpu))
@@ -161,7 +174,7 @@ def _run(i: int, root: Path, cpu: bool) -> dict:
     ranks = [json.loads(p.read_text()) for p in
              sorted(OUT.glob(f"{i}.rank*.json"))]
     line = {"root": str(root), "rc": rc, "s": time.perf_counter() - t0}
-    for step in ("decode", "train"):
+    for step in STEPS:
         got = [r[step] for r in ranks if step in r]
         if len(got) != 4:
             continue
@@ -185,7 +198,7 @@ def lead(roots, cpu: bool) -> int:
     ok = True
     for i, root in enumerate(roots):
         line = _run(i, Path(root), cpu)
-        ok &= line["rc"] == 0 and "decode" in line and "train" in line
+        ok &= line["rc"] == 0 and all(step in line for step in STEPS)
         print("[mesh_ab] " + json.dumps(line), flush=True)
     card = _card()
     if card:
@@ -197,8 +210,8 @@ def lead(roots, cpu: bool) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--roots", default=".",
-                    help="the trees, in order, e.g. build/parent,.,.,"
-                         "build/parent")
+                    help="the trees, in order, e.g. build/a,build/b,.,.,"
+                         "build/b,build/a")
     ap.add_argument("--cpu", action="store_true",
                     help="gloo on the CPU, smoke configs")
     ap.add_argument("--role", choices=("lead", "rank"), default="lead")

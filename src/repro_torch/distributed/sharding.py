@@ -302,6 +302,29 @@ def sum_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     return _SumOver.apply(x, mesh, tuple(dims)) if dims else x
 
 
+class _ShareSum(torch.autograd.Function):
+    """The all-reduce of :func:`share_sum`, whose backward sums the
+    gradient over the same ranks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return reduce_over(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_over(g.contiguous(), "sum", ctx.mesh, ctx.dims), None, \
+            None
+
+
+def share_sum(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """Each rank's plain share ``x`` of a sum, summed over the mesh dims
+    ``dims``, for a sum that each rank then uses on its own part of the
+    work: the gradient of a share is the sum of every rank's gradient of
+    the whole, so the backward all-reduces it too."""
+    return _ShareSum.apply(x, mesh, tuple(dims)) if dims else x
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose gradient is made contiguous: a kernel's backward
     may hand back a strided gradient, and DTensor's dispatch of the

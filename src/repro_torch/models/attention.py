@@ -447,10 +447,11 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     made whole along the keys.
 
     Otherwise the scores are JAX's, but for where one sum is taken: a
-    query projection whose contraction a mesh splits (the decode rules
-    split x's d) leaves the rope query a pending sum, which is reduced on
-    the (B, H, rd) query, onto ``q_abs``'s head split, and not on the
-    (B, H, T) scores it would otherwise make pending.
+    query projection whose contraction a mesh splits (x's d split over
+    "model") leaves the rope query a pending sum, which is reduced on the
+    (B, H, rd) query, onto ``q_abs``'s head split, and not on the (B, H, T)
+    scores it would otherwise make pending.  ``decode_step`` hands the
+    layer x whole over "model", so there it has no sum to reduce.
     """
     m = cfg.mla
     B = x.shape[0]
@@ -475,9 +476,9 @@ def mla_decode(params, x, cache_ckv, cache_kr, pos: int, cfg):
     else:
         q_rope = q_rope[:, 0]
         if is_dtensor(q_rope):
-            # the decode rules split x's d over "model", so the rope query
-            # is a pending sum; reduced onto q_abs's head split here, on
-            # (B, H, rd), its scores are not reduce-scattered (B, H, T)
+            # with x's d split over "model" the rope query is a pending
+            # sum; reduced onto q_abs's head split here, on (B, H, rd),
+            # its scores are not reduce-scattered (B, H, T)
             q_rope = distribute(q_rope, q_abs.device_mesh, q_abs.placements)
         s = torch.einsum("bhr,btr->bht", q_abs, cache_ckv).float()
         s = s + torch.einsum("bhk,btk->bht", q_rope, cache_kr).float()

@@ -97,12 +97,6 @@ def _unbind(tree):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-# decode's hidden state (B, 1, d) under a mesh: its d split over "model",
-# as the layers keep it (each layer's output projection is reduce-scattered
-# onto it); the embedding rows' pending sum is reduced onto it
-DECODE_AXES = ("batch", None, "model")
-
-
 class Model:
     def __init__(self, cfg: ModelConfig, shard_fn: Callable = Identity,
                  attn_impl: str = "kernel") -> None:
@@ -719,11 +713,13 @@ class Model:
         else:
             a, ck, cv = attn.gqa_decode(p["attn"], hn, ck, cv, pos, cfg,
                                         window=window, impl=self.attn_impl)
-        h = h + a
+        h = self.shard(h + a, ("batch", None, None))
         hn = rmsnorm(p["ln2"], h, cfg.norm_eps)
         if "moe" in p:
-            return h + moe_lib.moe_apply(p["moe"], hn, cfg)[0]
-        return h + mlp(p["mlp"], hn, cfg.mlp)
+            out = moe_lib.moe_apply(p["moe"], hn, cfg)[0]
+        else:
+            out = mlp(p["mlp"], hn, cfg.mlp)
+        return self.shard(h + out, ("batch", None, None))
 
     def decode_step(self, params, cache, tokens: torch.Tensor, pos: int, *,
                     head: Optional[torch.Tensor] = None):
@@ -732,11 +728,19 @@ class Model:
 
         ``head`` is ``logits_weight(params)``, made once by a caller that
         decodes many steps.
+
+        Under a mesh the hidden state (B, 1, d) is split over the batch
+        only and whole over "model", from the lookup (the rows' pending sum
+        over the vocab's split all-reduced onto it) to the last layer: each
+        layer pins it so after its attention and after its MLP, as the
+        training layers pin theirs, so that every torch version's DTensor
+        sends the same two all-reduces a layer and does not choose its own
+        placement (a split of d costs a reduce-scatter, an all-gather and
+        the norm's all-reduce a layer).
         """
         cfg = self.cfg
         params = self.compute_params(params)
-        h = self.lookup(params["embed"], tokens[..., None],
-                        DECODE_AXES)                    # (B,1,d)
+        h = self.lookup(params["embed"], tokens[..., None])     # (B,1,d)
 
         if cfg.family == "ssm":
             for i in range(cfg.num_layers):
@@ -775,7 +779,7 @@ class Model:
             p["ssm"], hn, state, conv, self.cfg)
         state.copy_(new_state)
         conv.copy_(new_conv)
-        return h + out
+        return self.shard(h + out, ("batch", None, None))
 
     def _decode_hybrid(self, params, cache, h, pos: int):
         cfg = self.cfg
@@ -785,10 +789,11 @@ class Model:
             a, _, _ = attn.gqa_decode(shared["attn"], hn, cache["attn_k"][n],
                                       cache["attn_v"][n], pos, self.shared_cfg,
                                       impl=self.attn_impl)
-            h = h + a
+            h = self.shard(h + a, ("batch", None, None))
             if "mlp" in shared:
                 hn = rmsnorm(shared["ln2"], h, cfg.norm_eps)
-                h = h + mlp(shared["mlp"], hn, cfg.mlp)
+                h = self.shard(h + mlp(shared["mlp"], hn, cfg.mlp),
+                               ("batch", None, None))
             for i in range(cfg.hybrid.shared_attn_period):
                 h = self._ssm_step(_index(_index(params["mamba"], n), i), h,
                                    cache["state"][n, i], cache["conv"][n, i])
@@ -823,29 +828,15 @@ def ssm_lib_prefill(p, hn, cfg, attn_impl):
     through the plain ``ssd_chunked`` under every impl, as in JAX, which
     takes ``attn_impl`` and does not use it either."""
     s = cfg.ssm
-    zxbcdt = hn @ p["in_proj"]
-    z, x, Bm, Cm, dt = ssm_lib._split_proj(zxbcdt, cfg)
-    xbc_raw = torch.cat([x, Bm, Cm], dim=-1)
     K = s.conv_kernel
+    out, h_final, xbc_raw = ssm_lib.ssd_per_shard(
+        lambda x, dt, A, Bm, Cm: ssm_lib.ssd_chunked(x, dt, A, Bm, Cm,
+                                                     chunk=s.chunk_size),
+        p, hn @ p["in_proj"], cfg)
     # per batch shard: DTensor's pad fails on some torch versions
     conv_tail = batch_call(lambda x: F.pad(
         x, (0, 0, max(0, K - 1 - x.shape[1]), 0))[:, -(K - 1):], xbc_raw)
-    xbc = ssm_lib._causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    d_in, G, N, nh = cfg.expand_dim, s.n_groups, s.d_state, cfg.ssm_heads
-    B, S = hn.shape[:2]
-    xh = xbc[..., :d_in].reshape(B, S, nh, s.head_dim)
-    Bh = xbc[..., d_in:d_in + G * N].reshape(B, S, G, N)
-    Ch = xbc[..., d_in + G * N:].reshape(B, S, G, N)
-    dtf = F.softplus(dt.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    y, h_final = ssm_lib.ssd_per_shard(
-        lambda x, dt, A, Bm, Cm: ssm_lib.ssd_chunked(x, dt, A, Bm, Cm,
-                                                     chunk=s.chunk_size),
-        xh, dtf, A, Bh, Ch)
-    y = y + xh * p["D"][:, None].to(xh.dtype)
-    y = y.reshape(B, S, d_in)
-    y = ssm_lib._gated_norm(p["norm"], y, z, cfg.norm_eps)
-    return y @ p["out_proj"], h_final, conv_tail
+    return out, h_final, conv_tail
 
 
 def build_model(cfg: ModelConfig, shard_fn: Callable = Identity,

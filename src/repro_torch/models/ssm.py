@@ -30,9 +30,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (batch_call, distribute,
+from repro_torch.distributed.sharding import (_groups_of, distribute,
                                               is_dtensor, local_call,
-                                              reduce_pending, unshard)
+                                              reduce_pending, share_sum,
+                                              unshard)
 
 from .param import ParamSpec
 
@@ -84,16 +85,9 @@ def _split_proj(zxbcdt: torch.Tensor, cfg):
     return z, x, Bm, Cm, dt
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                 ) -> torch.Tensor:
-    """Depthwise causal conv via shifts (kernel K small). xbc (B,S,C).
-    Under a mesh it runs on each rank's batch shard with the weights whole
-    (``batch_call``): DTensor's ``pad`` fails on some torch versions."""
-    return batch_call(_conv_shifts, xbc, w, b)
-
-
 def _conv_shifts(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
+    """Depthwise causal conv via shifts (kernel K small). xbc (B,S,C)."""
     K = w.shape[0]
     out = xbc * w[K - 1]
     for i in range(1, K):
@@ -103,13 +97,18 @@ def _conv_shifts(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def _gated_norm(scale: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
-                eps: float) -> torch.Tensor:
+                eps: float, total=reduce_pending, width: int = 0
+                ) -> torch.Tensor:
+    """RMS norm of y * silu(z) over its last dim, of ``width`` channels
+    (y's own, by default): ``total`` makes the sum of squares whole (on
+    DTensors, whose y a mesh splits over "model" along the mean's dim, a
+    pending sum is reduced here and not reduce-scattered over the
+    sequence; on one rank's channels, the sum over the ranks that hold the
+    others)."""
     out_dtype = z.dtype  # z comes straight from the (bf16) projection
     yf = y.float() * F.silu(z.float())
-    # under a mesh y is split over "model" along the mean's dim; reduced
-    # here, the pending sum is not reduce-scattered over the sequence
-    var = reduce_pending(torch.sum(torch.square(yf), dim=-1, keepdim=True)
-                         ) / yf.shape[-1]
+    var = total(torch.sum(torch.square(yf), dim=-1, keepdim=True)
+                ) / (width or yf.shape[-1])
     return (yf * torch.rsqrt(var + eps) * scale).to(out_dtype)
 
 
@@ -210,24 +209,106 @@ def ssd_reference(x, dt, A, Bm, Cm, init_state=None):
     return torch.stack(ys, dim=1).to(x.dtype), h
 
 
-def ssd_per_shard(fn, x, dt, A, Bm, Cm):
-    """``fn(x, dt, A, Bm, Cm)``, an SSD scan -> (y, final state), on each
-    rank's shards under a mesh: the batch and the heads split, each rank's
-    heads with the B/C groups they read (the scan needs no exchange).  x
-    comes out of the convolution whole along its channels; its heads are
-    split over the mesh dims that split A's (``A_log``'s spec puts them on
-    "model"), so that each rank scans its own heads and not all of them.
-    As DTensor ops, the scan's einsums would merge the data-split batch and
-    the model-split heads into one strided-split dim, whose product DTensor
-    places only by reading values (a fake tensor has none)."""
-    if is_dtensor(x) and is_dtensor(A):
-        from torch.distributed.tensor import Shard
-        x = distribute(x, x.device_mesh, [
-            Shard(2) if p.is_replicate() and a == Shard(0) else p
-            for p, a in zip(x.placements, A.placements)])
-    return local_call(lambda x, Bm, Cm, dt, A: fn(x, dt, A, Bm, Cm),
-                      x, (Bm, Cm), ((dt, 2), (A, 0)), q_dim=2, group_dim=2,
-                      outs=((0, None), (0, 1)))
+def _on_heads(p, zxbcdt, cfg, scan, h0: int, H: int, total=lambda s: s):
+    """The layer from its input projection's output ``zxbcdt`` (B, S, ...)
+    to its output projection, for the heads ``[h0, h0 + H)``, on plain
+    tensors -> (out (B, S, d), their final state (B, H, N, P), the
+    convolution's input xBC (B, S, conv_dim), a view of ``zxbcdt``).
+
+    ``p``'s per-head leaves (``A_log``, ``D``, ``dt_bias``, ``norm`` and
+    ``out_proj``'s rows) hold those heads only; ``conv_w`` and ``conv_b``
+    every channel.  The convolution, depthwise, runs on the heads' x
+    channels and every B/C channel; ``scan(x, dt, A, Bm, Cm)`` is handed
+    the B/C groups the heads read.  ``total`` makes the gated norm's sum of
+    squares whole over the ranks that hold the other heads; ``out`` is then
+    this rank's share of the output projection's sum."""
+    s = cfg.ssm
+    d_in, G, N, P, nh = (cfg.expand_dim, s.n_groups, s.d_state, s.head_dim,
+                         cfg.ssm_heads)
+    B, S = zxbcdt.shape[:2]
+    c0, c1, w = h0 * P, (h0 + H) * P, H * P
+    xbc_raw = zxbcdt[..., d_in:2 * d_in + 2 * G * N]
+    z = zxbcdt[..., c0:c1]
+    dt = zxbcdt[..., 2 * d_in + 2 * G * N + h0:2 * d_in + 2 * G * N + h0 + H]
+    mine = (lambda t: t) if H == nh else \
+        (lambda t: torch.cat([t[..., c0:c1], t[..., d_in:]], dim=-1))
+    xbc = _conv_shifts(mine(xbc_raw), mine(p["conv_w"]), mine(p["conv_b"]))
+    x = xbc[..., :w].reshape(B, S, H, P)
+    Bm, Cm = (_groups_of(xbc[..., w + i * G * N:w + (i + 1) * G * N]
+                         .reshape(B, S, G, N), 2, h0, H, nh // G)
+              for i in (0, 1))
+    dt = F.softplus(dt.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    y, h_final = scan(x, dt, A, Bm, Cm)
+    y = y + x * p["D"][:, None].to(x.dtype)
+    y = _gated_norm(p["norm"], y.reshape(B, S, w), z, cfg.norm_eps, total,
+                    d_in)
+    return y @ p["out_proj"], h_final, xbc_raw
+
+
+def ssd_per_shard(scan, p, zxbcdt, cfg):
+    """The layer from ``zxbcdt``, its input projection's output, to its
+    output projection, each rank on its own heads -> (out, the final state
+    (B, nh, N, P), the convolution's input xBC): :func:`_on_heads`, which
+    calls ``scan(x, dt, A, Bm, Cm)``, an SSD scan -> (y, final state).
+
+    Under a mesh each rank holds ``zxbcdt`` whole along its channels for
+    its own batch shard (the all-gather of the projection's model split)
+    and works on the heads the mesh dims that split ``A_log`` give it, on
+    plain tensors: the depthwise convolution on its heads' x channels and
+    every B/C channel, its heads' scan with the B/C groups they read, the
+    gated norm (its sum of squares all-reduced over those dims, forward
+    and backward) and its rows of the output projection, whose output is
+    left a pending sum over them.  dx, dz and d(dt) stay on the rank that
+    owns their heads, and each rank's dB and dC are its own heads' share:
+    the gradient of ``zxbcdt`` is a pending sum (each rank's heads'
+    channels, zeros elsewhere, and its shares of B and C), which the
+    all-gather's backward reduce-scatters onto the projection's split,
+    summing dB and dC on the way.  No other tensor of the layer is
+    exchanged, forward or backward: DTensor's own placement of these ops
+    all-reduced the whole xBC gradient (B/data, S, conv_dim) each layer,
+    and split and re-gathered the norm's and the gate's gradients."""
+    nh = cfg.ssm_heads
+    if not is_dtensor(zxbcdt):
+        return _on_heads(p, zxbcdt, cfg, scan, 0, nh)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = zxbcdt.device_mesh
+    dims = range(mesh.ndim)
+    A = p["A_log"]
+    heads = [i for i in dims if is_dtensor(A) and A.placements[i] == Shard(0)]
+    batch = [i for i in dims if zxbcdt.placements[i] == Shard(0)]
+    split, index = 1, 0
+    for i in heads:
+        split *= mesh.shape[i]
+        index = index * mesh.shape[i] + mesh.get_coordinate()[i]
+    H = nh // split
+
+    def local(t, held, grad, rows=False):
+        """t's shard: per mesh dim, ``held`` on a heads dim, on a batch dim
+        split as the batch where its dim 0 is the batch (``rows``), whole
+        elsewhere; its gradient ``grad`` on a heads dim, on a batch dim
+        split as the batch or a pending sum."""
+        pl = [held if i in heads else Shard(0) if rows and i in batch
+              else Replicate() for i in dims]
+        gr = [grad if i in heads else (Shard(0) if rows else Partial())
+              if i in batch else Replicate() for i in dims]
+        return distribute(t, mesh, pl).to_local(grad_placements=gr)
+    # the batch's rows whole along the channels; the parameters split as
+    # the heads, but for the convolution's, whole
+    zx = local(zxbcdt, Replicate(), Partial(), rows=True)
+    lp = {k: local(p[k], Shard(0), Shard(0))
+          for k in ("A_log", "D", "dt_bias", "norm", "out_proj")}
+    for k in ("conv_w", "conv_b"):
+        lp[k] = local(p[k], Replicate(), Partial())
+    out, state, xbc = _on_heads(
+        lp, zx, cfg, scan, index * H, H,
+        lambda s: share_sum(s, mesh, heads))
+    place = lambda held: [held if i in heads else Shard(0) if i in batch
+                          else Replicate() for i in dims]
+    return (DTensor.from_local(out, mesh, place(Partial()), run_check=False),
+            DTensor.from_local(state, mesh, place(Shard(1)), run_check=False),
+            DTensor.from_local(xbc, mesh, place(Replicate()),
+                               run_check=False))
 
 
 # ------------------------------------------------------------- layer fwd
@@ -238,37 +319,19 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *, impl: str = "kernel",
     ``impl="kernel"`` takes no ``init_state`` (nor does the JAX package's
     kernel path): passing one raises rather than dropping it.
     """
-    s = cfg.ssm
-    zxbcdt = u @ params["in_proj"]
-    z, x, Bm, Cm, dt = _split_proj(zxbcdt, cfg)
-    xbc = torch.cat([x, Bm, Cm], dim=-1)
-    xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    d_in = cfg.expand_dim
-    G, N, nh = s.n_groups, s.d_state, cfg.ssm_heads
-    B, S = u.shape[:2]
-    x = xbc[..., :d_in].reshape(B, S, nh, s.head_dim)
-    Bm = xbc[..., d_in:d_in + G * N].reshape(B, S, G, N)
-    Cm = xbc[..., d_in + G * N:].reshape(B, S, G, N)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    chunk = cfg.ssm.chunk_size
     if impl == "kernel":
         if init_state is not None:
             raise ValueError("the ssd kernel takes no initial state; use "
                              "impl='torch'")
         from repro_torch.kernels.ssd_scan import ssd
-        y, h_final = ssd_per_shard(
-            lambda x, dt, A, Bm, Cm: ssd(x, dt, A, Bm, Cm,
-                                         chunk=s.chunk_size),
-            x, dt, A, Bm, Cm)
+        scan = lambda x, dt, A, Bm, Cm: ssd(x, dt, A, Bm, Cm, chunk=chunk)
     elif impl == "torch":
-        y, h_final = ssd_chunked(x, dt, A, Bm, Cm, chunk=s.chunk_size,
-                                 init_state=init_state)
+        scan = lambda x, dt, A, Bm, Cm: ssd_chunked(
+            x, dt, A, Bm, Cm, chunk=chunk, init_state=init_state)
     else:
         raise ValueError(f"unknown ssm impl {impl!r}")
-    y = y + x * params["D"][:, None].to(x.dtype)
-    y = y.reshape(B, S, d_in)
-    y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
-    out = y @ params["out_proj"]
+    out, h_final, _ = ssd_per_shard(scan, params, u @ params["in_proj"], cfg)
     if return_state:
         return out, h_final
     return out

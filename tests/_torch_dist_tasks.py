@@ -9,6 +9,7 @@ the test's own process or in a subprocess of its own.
 
 from __future__ import annotations
 
+import contextlib
 import sys
 from pathlib import Path
 
@@ -210,57 +211,146 @@ def mla_decode_on(mesh, rules, pos: int,
             "kr": kr.full_tensor().numpy(), "placements": str(ckv.placements)}
 
 
-# ssd_per_shard with one B/C group on a model axis of 4: each rank's two
-# heads all read the one group, which the rank is handed once (the kernel's
-# G = 1)
-SSD = dict(B=2, S=64, nh=8, P=16, G=1, N=16, chunk=32)
+# one smoke mamba2 layer (16 heads of 16, one B/C group) on a model axis of
+# 4 through ssd_per_shard: each rank's scan takes its 4 heads and the one
+# group they all read (the kernel's G = 1)
+LAYER = dict(B=2, S=64)
 
 
-def ssd_inputs() -> dict:
-    """numpy inputs of one SSD scan at ``SSD``'s widths, as
-    ``test_torch_ssd.py`` draws them, and cotangents of y and the state."""
-    c = SSD
-    B, S, nh, P, G, N = (c[k] for k in ("B", "S", "nh", "P", "G", "N"))
+def layer_inputs() -> dict:
+    """numpy params of one smoke mamba2 layer (its constant leaves given
+    noise, so that a comparison sees them), an input u (B, S, d) and
+    cotangents of the output and the final state."""
+    from repro_torch.models.param import materialize
+    from repro_torch.models.ssm import ssm_specs
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    s, B, S = cfg.ssm, LAYER["B"], LAYER["S"]
     rng = np.random.default_rng(9)
-    f = lambda a: a.astype(np.float32)
-    return {"x": f(rng.standard_normal((B, S, nh, P)) * 0.5),
-            "dt": f(rng.uniform(1e-3, 0.1, (B, S, nh))),
-            "A": f(-rng.uniform(0.5, 4.0, (nh,))),
-            "Bm": f(rng.standard_normal((B, S, G, N)) * 0.3),
-            "Cm": f(rng.standard_normal((B, S, G, N)) * 0.3),
-            "gy": f(rng.standard_normal((B, S, nh, P))),
-            "gst": f(rng.standard_normal((B, nh, N, P)))}
+    params = {}
+    for k, t in named_leaves(materialize(ssm_specs(cfg),
+                                         torch.Generator().manual_seed(9),
+                                         "cpu")):
+        a = t.numpy()
+        if np.all(a == a.flat[0]):
+            a = (a + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        params[k] = a
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    return {"params": params, "u": f(B, S, cfg.d_model) * 0.5,
+            "gy": f(B, S, cfg.d_model),
+            "gst": f(B, cfg.ssm_heads, s.d_state, s.head_dim)}
 
 
-def ssd_on(mesh) -> dict:
-    """``ssd_per_shard`` through the ssd wrapper of ``ssd_inputs()`` placed
-    by the train rules (the heads over "model", the one group whole): y, the
-    final state and the five gradients whole, and the group count each
-    rank's call was handed."""
-    from repro_torch.kernels.ssd_scan import ssd
-    from repro_torch.models.ssm import ssd_per_shard
-    inp, rules = ssd_inputs(), make_rules("train")
-    axes = {"x": ("batch", None, "heads", None), "dt": ("batch", None, "heads"),
-            "A": ("heads",), "Bm": ("batch", None, None, None),
-            "Cm": ("batch", None, None, None)}
-    placed = {n: distribute(torch.from_numpy(inp[n]), mesh, placements_for(
-        spec_for(inp[n].shape, a, mesh, rules), mesh)).requires_grad_()
-        for n, a in axes.items()}
-    groups = []
+@contextlib.contextmanager
+def recorded_scans():
+    """The ssd wrapper, recording each call's heads and groups and, once
+    the backward has run, the gradients of its x, Bm and Cm."""
+    import repro_torch.kernels.ssd_scan as kernel
+    real, calls = kernel.ssd, []
 
-    def scan(x, dt, A, Bm, Cm):
-        groups.append(Bm.shape[2])
-        return ssd(x, dt, A, Bm, Cm, chunk=SSD["chunk"])
-    y, st = ssd_per_shard(scan, *placed.values())
-    loss = (y * distribute(torch.from_numpy(inp["gy"]), mesh, y.placements)
-            ).sum() + (st * distribute(torch.from_numpy(inp["gst"]), mesh,
-                                       st.placements)).sum()
-    loss.backward()
+    def ssd(x, dt, A, Bm, Cm, **kw):
+        rec = {"handed": (x.shape[2], Bm.shape[2])}
+        for name, t in (("dx", x), ("dB", Bm), ("dC", Cm)):
+            if t.requires_grad:
+                t.register_hook(lambda g, name=name, rec=rec:
+                                rec.__setitem__(name, g.detach().clone()))
+        calls.append(rec)
+        return real(x, dt, A, Bm, Cm, **kw)
+    kernel.ssd = ssd
+    try:
+        yield calls
+    finally:
+        kernel.ssd = real
+
+
+def layer_on(mesh) -> dict:
+    """``mamba2_forward`` (through ``ssd_per_shard`` and the ssd wrapper)
+    of ``layer_inputs()`` placed by the train rules: the output, the final
+    state and the gradients of u and of every parameter, whole; the (heads,
+    groups) each rank's scan was handed."""
+    from repro_torch.models.ssm import mamba2_forward, ssm_specs
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    inp, rules, specs = layer_inputs(), make_rules("train"), ssm_specs(cfg)
+
+    def placed(a, axes):
+        return distribute(a, mesh, placements_for(
+            spec_for(tuple(a.shape), axes, mesh, rules), mesh))
+    params = {k: placed(torch.from_numpy(a), specs[k].axes).requires_grad_()
+              for k, a in inp["params"].items()}
+    hidden = ("batch", None, None)
+    u = placed(torch.from_numpy(inp["u"]), hidden).requires_grad_()
+    with recorded_scans() as calls:
+        y, st = mamba2_forward(params, u, cfg, return_state=True)
+        y = placed(y, hidden)            # the output's pending sum reduced
+        loss = (y * placed(torch.from_numpy(inp["gy"]), hidden)).sum() + (
+            st * distribute(torch.from_numpy(inp["gst"]), mesh,
+                            st.placements)).sum()
+        loss.backward()
     return {"y": y.full_tensor().detach().numpy(),
             "state": st.full_tensor().detach().numpy(),
-            "grads": {n: t.grad.full_tensor().numpy()
-                      for n, t in placed.items()},
-            "local_groups": groups}
+            "grads": {k: t.grad.full_tensor().numpy()
+                      for k, t in [("u", u)] + list(params.items())},
+            "handed": [c["handed"] for c in calls]}
+
+
+def decode_counted(arch: str) -> dict:
+    """One decode step of smoke ``arch`` served on (1, 4), as
+    ``decode_logits`` takes it: the placements of the hidden state each
+    layer hands the next, and the step's collectives by kind."""
+    from repro_torch.launch.op_analysis import OpCounter
+    srv = Server(serve_job(arch, 4))
+    model, placed = srv.model, []
+    cache = srv._place(model.cache_specs(2, 6), model.init_cache(2, 6, "cpu"))
+    real = model._dense_step
+
+    def step(*args, **kw):
+        h = real(*args, **kw)
+        placed.append(str(h.placements))
+        return h
+    model._dense_step = step
+    counter = OpCounter()
+    with torch.no_grad(), counter:
+        srv._step(cache, np.zeros((2,), np.int32), 0)
+    return {"placements": placed, "count": counter.costs.collective_count,
+            "bytes": counter.costs.collective_by_kind}
+
+
+def ssm_batch() -> dict:
+    """numpy tokens, targets and loss mask of a smoke train batch (4, 64):
+    two of the smoke ssm configs' 32-token chunks."""
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, 512, (4, 65)).astype(np.int32)
+    return {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+            "loss_mask": (rng.uniform(size=(4, 64)) < 0.9).astype(np.float32)}
+
+
+def ssm_grads(mesh=None) -> dict:
+    """Smoke mamba2's loss and gradient of ``ssm_batch()`` (parameters from
+    seed 0), under the train rules on ``mesh`` (None: one process): each
+    scan's dx, dB and dC as this rank holds them, the rank's mesh
+    coordinate, and the backward's collectives by kind."""
+    from repro_torch.distributed.sharding import make_shard_fn
+    from repro_torch.launch.op_analysis import OpCounter
+    cfg = reduce_for_smoke(get_arch("mamba2-1.3b"))
+    rules = make_rules("train")
+    model = build_model(cfg, shard_fn=make_shard_fn(mesh, rules))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = {k: torch.from_numpy(v) for k, v in ssm_batch().items()}
+    if mesh is not None:
+        params = place_tree(params, sharding_for_specs(
+            model.param_specs(), mesh, rules), mesh)
+        batch = {k: model.shard(v, ("batch", None)) for k, v in batch.items()}
+    for _, t in named_leaves(params):
+        t.requires_grad_()
+    counter = OpCounter()
+    with recorded_scans() as calls, model.spmd():
+        loss, _ = model.loss_fn(params, batch)
+        with counter:
+            loss.backward()
+    return {"coord": mesh.get_coordinate() if mesh is not None else None,
+            "scans": [{k: c[k].numpy() for k in ("dx", "dB", "dC")}
+                      for c in calls],
+            "count": counter.costs.collective_count,
+            "bytes": counter.costs.collective_by_kind}
 
 
 # GQA on (1, 4) beyond the trap: heads that all read one KV group (H=8,
@@ -432,7 +522,10 @@ def task_world4(rank, out, store_dir):
     out["mla_decode_rules"] = {pos: mla_decode_on(
         mesh22, make_rules("decode"), pos, ("batch", None, "model"))
         for pos in MLA_POSITIONS}
-    out["ssd_per_shard"] = ssd_on(mesh)
+    out["ssd_per_shard"] = layer_on(mesh)
+    out["ssm_grads"] = ssm_grads(mesh22)
+    out["decode_counted"] = {a: decode_counted(a)
+                             for a in ("gemma-2b", "deepseek-v3-671b")}
     out["gqa_groups"] = gqa_groups_on(mesh)
     # the serving rules on (1, 4) and (2, 2): each rank looks its tokens
     # up in its own vocab shard

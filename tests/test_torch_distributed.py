@@ -459,32 +459,118 @@ def _same_mla_decode(got, pos: int, tol: float) -> None:
 
 
 def test_ssd_per_shard_with_one_group_on_a_model_axis_of_4(world4):
-    """mamba2's one B/C group on a (1, 4) mesh: ``ssd_per_shard`` hands
-    each rank's scan its two heads and the one group they both read, once
-    (G = 1; it was a copy of the group for each local head, G = 2); y and
-    the final state match JAX's ``ssd_chunked`` to ``ssd``'s 2e-4, the five
-    gradients (the group's summed over the ranks) to 1e-4."""
+    """A smoke mamba2 layer on a (1, 4) mesh through ``ssd_per_shard``:
+    each rank's scan is handed its 4 of the 16 heads and the one B/C group
+    they all read, once (G = 1), the convolution run on their x channels
+    and every B/C channel.  The output and the final state match the
+    meshless port's to 1e-5 and JAX's ``mamba2_forward`` to ``ssd``'s 2e-4,
+    the gradients of u and of every parameter (dB and dC summed by the
+    reduce-scatter of the projection's gradient) the port's to 1e-5 and
+    JAX's to 1e-4 of their largest."""
     import jax
 
-    from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+    from repro.configs import get_arch as jax_get_arch
+    from repro.configs import reduce_for_smoke as jax_reduce
+    from repro.models import ssm as jax_ssm
+    from repro_torch.models.ssm import mamba2_forward
+    for rank in world4[0]:
+        assert rank["ssd_per_shard"]["handed"] == [(4, 1)]
     got = world4[0][0]["ssd_per_shard"]
-    c = tasks.SSD
-    assert [r["ssd_per_shard"]["local_groups"] for r in world4[0]] == \
-        [[1]] * 4
-    inp = tasks.ssd_inputs()
-    names = ("x", "dt", "A", "Bm", "Cm")
+    inp = tasks.layer_inputs()
+    cfg = tasks.reduce_for_smoke(tasks.get_arch("mamba2-1.3b"))
+    params = {k: torch.from_numpy(a).requires_grad_()
+              for k, a in inp["params"].items()}
+    u = torch.from_numpy(inp["u"]).requires_grad_()
+    y, st = mamba2_forward(params, u, cfg, return_state=True)
+    ((y * torch.from_numpy(inp["gy"])).sum()
+     + (st * torch.from_numpy(inp["gst"])).sum()).backward()
+    jcfg = jax_reduce(jax_get_arch("mamba2-1.3b"))
 
-    def loss(*a):
-        y, st = jax_ssd_chunked(*a, chunk=c["chunk"])
+    def loss(p, u):
+        y, st = jax_ssm.mamba2_forward(p, u, jcfg, return_state=True)
         return jnp.sum(y * inp["gy"]) + jnp.sum(st * inp["gst"]), (y, st)
-    grads, (y, st) = jax.grad(loss, argnums=tuple(range(5)), has_aux=True)(
-        *(jnp.asarray(inp[n]) for n in names))
-    np.testing.assert_allclose(got["y"], np.asarray(y), atol=2e-4, rtol=2e-4)
-    np.testing.assert_allclose(got["state"], np.asarray(st), atol=2e-4,
-                               rtol=2e-4)
-    for n, g in zip(names, grads):
-        np.testing.assert_allclose(got["grads"][n], np.asarray(g), atol=1e-4,
-                                   rtol=1e-4, err_msg=n)
+    (jp, ju), (jy, jst) = jax.grad(loss, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(a) for k, a in inp["params"].items()},
+        jnp.asarray(inp["u"]))
+    jgrads = {"u": ju, **jp}
+    for want, tol in (((y, st), 1e-5), ((jy, jst), 2e-4)):
+        for name, w in zip(("y", "state"), want):
+            w = np.asarray(w.detach() if hasattr(w, "detach") else w)
+            assert _close(got[name], w, tol), (name, tol)
+    for k, g in got["grads"].items():
+        one = (u if k == "u" else params[k]).grad.numpy()
+        assert _close(g, one, 1e-5), k
+        assert _close(g, np.asarray(jgrads[k]), 1e-4), k
+
+
+def test_mamba2_gradient_on_2x2_sums_only_the_projections_split(world4):
+    """A smoke mamba2 loss and gradient on (2, 2) under the train rules
+    (4 layers, 16 heads, one B/C group): each rank's scans' dx, and dB and
+    dC summed over the model ranks, equal one process's to ``ssd``'s 2e-4.
+    The backward's collectives, exactly: a layer's only reductions over
+    "model" are the reduce-scatter of its projection's gradient (B/data,
+    S, proj_out/model), which sums dB and dC with the rest, the gated
+    norm's (B/data, S, 1) and the residual stream's (B/data, S, d) (each
+    rank's heads' share of its input's gradient); no all-reduce carries
+    the (B/data, S, conv_dim) gradient of the convolution's input, which
+    the layer all-reduced whole.  The rest are the parameters' sums over
+    "data" (conv_w and conv_b, then reduce-scattered over "model"), the
+    fsdp reduce-scatters and the embedding's."""
+    want = tasks.ssm_grads()
+    cfg = tasks.reduce_for_smoke(tasks.get_arch("mamba2-1.3b"))
+    ranks = sorted(world4[0], key=lambda r: r["ssm_grads"]["coord"])
+    got = [r["ssm_grads"] for r in ranks]          # (data, model) order
+    for layer, w in enumerate(want["scans"]):
+        part = lambda i, j, k: got[2 * i + j]["scans"][layer][k]
+        dx = np.concatenate([np.concatenate([part(i, j, "dx") for j in (0, 1)],
+                                            axis=2) for i in (0, 1)])
+        assert _close(dx, w["dx"], 2e-4), layer
+        for k in ("dB", "dC"):
+            summed = np.concatenate([part(i, 0, k) + part(i, 1, k)
+                                     for i in (0, 1)])
+            assert _close(summed, w[k], 2e-4), (layer, k)
+    s, L, d, V = cfg.ssm, cfg.num_layers, cfg.d_model, cfg.padded_vocab
+    d_in, K = cfg.expand_dim, s.conv_kernel
+    conv = d_in + 2 * s.n_groups * s.d_state
+    proj = 2 * d_in + 2 * s.n_groups * s.d_state + cfg.ssm_heads
+    tok, f32 = 4 // 2 * 64, 4
+    # the residual stream's L and the lookup's; conv_w's, conv_b's and
+    # the norm's L each
+    all_reduce = (L + 1) * tok * d + L * (K * conv + conv + tok)
+    reduce_scatter = L * (tok * proj // 2             # the projection
+                          + d // 2 * proj // 2 + d_in // 2 * d // 2
+                          + K * conv // 2 + conv // 2) + V // 2 * d // 2
+    for r in got:
+        assert r["count"] == {"all-reduce": (L + 1) + 3 * L,
+                              "reduce-scatter": 5 * L + 1}, r["count"]
+        assert r["bytes"] == {
+            "all-reduce": f32 * all_reduce,
+            "reduce-scatter": f32 * reduce_scatter}, r["bytes"]
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-v3-671b"])
+def test_decode_hidden_state_is_whole_over_model_on_1x4(world4, arch):
+    """A smoke decode step served on (1, 4): the hidden state each layer
+    hands the next is placed ``Replicate`` on "model" on every rank, and
+    the step sends exactly: one all-reduce of the looked-up rows and two a
+    layer (after the attention, after the MLP or MoE), each (B, 1, d);
+    deepseek-v3's 3 MoE layers one more of their (B * top_k, d) rows over
+    the experts' ranks; and the all-gather of the (B, V/4) logits."""
+    cfg = tasks.reduce_for_smoke(tasks.get_arch(arch))
+    B, f32 = 2, 4
+    moe = cfg.num_layers - cfg.moe.first_dense_layers if cfg.moe else 0
+    want_count = {"all-reduce": 1 + 2 * cfg.num_layers + moe,
+                  "all-gather": 1}
+    rows = B * cfg.d_model * (1 + 2 * cfg.num_layers)
+    experts = moe * B * cfg.moe.top_k * cfg.d_model if moe else 0
+    want_bytes = {"all-reduce": f32 * (rows + experts),
+                  "all-gather": f32 * B * cfg.padded_vocab}
+    for rank in world4[0]:
+        got = rank["decode_counted"][arch]
+        assert got["placements"] == \
+            ["(Replicate(), Replicate())"] * cfg.num_layers
+        assert got["count"] == want_count, got
+        assert got["bytes"] == want_bytes, got
 
 
 @pytest.mark.parametrize("impl", tasks.GQA_IMPLS)

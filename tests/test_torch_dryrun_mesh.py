@@ -184,7 +184,8 @@ def test_decode_on_a_key_split_cache_gathers_no_cache(results):
     keys split over "model") all-gathers what the decode rules' step does
     and, each layer, only the new token's q, k and v made whole along the
     key split; the cache stays in place (it was all-gathered each layer).
-    The merge adds one all-reduce of the lse max and one of the weighted
+    The merge adds to the decode rules' all-reduces (the hidden state's,
+    whole over "model") one of the lse max and one of the weighted
     outputs with their weights, (B/data, H) and (B/data, H, D + 1), and at
     most those buffers of one layer to the decode rules' peak (a gathered
     cache would add a layer's whole K and V, 32,768 B).  Both peaks were
@@ -200,6 +201,7 @@ def test_decode_on_a_key_split_cache_gathers_no_cache(results):
     assert seq["collective_by_kind"]["all-gather"] == \
         default["collective_by_kind"]["all-gather"] + token
     assert seq["collective_by_kind"]["all-reduce"] == \
+        default["collective_by_kind"]["all-reduce"] + \
         L * B_loc * H * (1 + D + 1) * fp32
     assert seq["kernel_calls"] == default["kernel_calls"] == \
         {"decode_attention": L}
@@ -230,7 +232,7 @@ def test_key_split_decode_gathers_only_the_token(results, arch, mesh):
         out_width = D
     for T in KEY_SPLIT_T:
         default, seq = got[f"default_{T}"], got[f"seq_shard_{T}"]
-        assert seq["all-gather"] == default["all-gather"] + \
+        assert seq["all-gather"] == default.get("all-gather", 0) + \
             L * B_loc * token * fp32, (T, seq, default)
         assert seq["all-reduce"] == default.get("all-reduce", 0) + \
             L * B_loc * H * (1 + out_width + 1) * fp32, (T, seq, default)
@@ -240,25 +242,33 @@ def test_key_split_decode_gathers_only_the_token(results, arch, mesh):
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4"])
 def test_mla_decode_under_the_decode_rules_reduces_no_score(results, mesh):
-    """The decode rules split x's d over "model", so ``mla_decode``'s rope
-    query comes out of its projection as a pending sum.  Reduced on the
-    (B/data, H, rope) query, onto the absorbed query's head split, it
-    leaves the (B/data, H, T) scores unreduced: a smoke deepseek-v3 decode
-    step reduce-scatters the same bytes at both cache lengths, as many as
-    under --seq-shard, whose count does not change (9,252 B on (2, 2): the
-    8,740 B of the layers and, since the embedding rows are looked up in
-    each rank's vocab shard, their reduce-scatter onto decode's hidden
-    state, (B/data, 1, d/model) fp32 = 512 B).  The step before the score
-    reduction moved reduce-scattered its scores, 16 B a position a layer
-    on (2, 2): 11,812 B at T=64, 15,908 B at T=128."""
-    from _torch_dryrun_tasks import KEY_SPLIT_T
+    """A smoke deepseek-v3 decode step under the decode rules, at two cache
+    lengths: the same collectives at both, and no reduce-scatter under
+    either cache rule (that of a (B/data, H, T) score grew with T, 16 B a
+    position a layer on (2, 2), while a split of x's d left the rope query
+    a pending sum).  The hidden state is whole over "model", so the rope
+    query comes out of its projection on q_abs's head split, and the
+    step's only all-reduces are, each (B/data, 1, d) fp32, the looked-up
+    rows' and two a layer, and each of the 3 MoE layers' sums: of its
+    dispatched rows over the experts' ranks, (B/data * top_k, d), and on
+    (2, 2) over "data" of its (E/model, C, d) expert buffer (C = 8), its
+    (E,) routing fractions and (E,) router probabilities.  Exactly:
+    64,704 B on (2, 2) and 30,720 B on (1, 4)."""
+    from _torch_dryrun_tasks import KEY_SPLIT_T, SEQ_SHAPE
     got = _get(results, f"key_split_{mesh}")["deepseek-v3-671b"]
+    L = got["widths"][0]
+    _, d, fp32 = got["table"]
+    data, model = (2, 2) if mesh == "2x2" else (1, 4)
+    B, E, k, moe, C = SEQ_SHAPE.global_batch // data, 8, 2, 3, 8
+    rows = (1 + 2 * L) * B * d + moe * B * k * d
+    buffers = moe * (E // model * C * d + 2 * E) if data > 1 else 0
     for T in KEY_SPLIT_T:
+        assert got[f"default_{T}"]["all-reduce"] == (rows + buffers) * fp32
         assert got[f"default_{T}"] == got[f"default_{KEY_SPLIT_T[0]}"], T
-        assert got[f"default_{T}"]["reduce-scatter"] == \
-            got[f"seq_shard_{T}"]["reduce-scatter"], T
-        if mesh == "2x2":
-            assert got[f"seq_shard_{T}"]["reduce-scatter"] == 9252
+        for rule in ("default", "seq_shard"):
+            assert "reduce-scatter" not in got[f"{rule}_{T}"], (rule, T)
+    assert got[f"default_{KEY_SPLIT_T[0]}"]["all-reduce"] == \
+        (64704 if mesh == "2x2" else 30720)
 
 
 @pytest.mark.parametrize("mesh", ["2x2", "1x4"])
@@ -268,9 +278,9 @@ def test_lookup_moves_only_the_rows_reduction(results, arch, mesh):
     ``Model.lookup``), each rank's tokens in its own vocab shard: the table
     comes in whole along d (``compute_params``' fsdp gather of the rank's
     vocab shard, counted with the step), so the lookup sends only the
-    reduction of the looked-up rows: an all-reduce of a train step's
-    (B/data, S, d), a reduce-scatter of decode's (B/data, 1, d) onto its
-    hidden state's split of d over "model".  DTensor's own lookup moved the
+    reduction of the looked-up rows, one all-reduce onto the hidden state
+    whole over "model": of a train step's (B/data, S, d), of decode's
+    (B/data, 1, d).  DTensor's own lookup moved the
     whole table (the decode rules' vocab split) to a split along d."""
     from _torch_dryrun_tasks import KEY_SPLIT_T, SEQ_SHAPE, SMOKE_TRAIN
     got = _get(results, f"key_split_{mesh}")[arch]
@@ -282,7 +292,7 @@ def test_lookup_moves_only_the_rows_reduction(results, arch, mesh):
     B = SEQ_SHAPE.global_batch // data
     for T in KEY_SPLIT_T:
         assert got[f"lookup_{T}"]["by_kind"] == {
-            "reduce-scatter": B * d // model * fp32}, T
+            "all-reduce": B * d * fp32}, T
         assert set(got[f"lookup_{T}"]["count"].values()) == {1}
 
 
@@ -304,15 +314,16 @@ def test_decode_step_moves_no_table_bytes_on_a_model_axis_of_4(results,
 
 def test_lookup_on_the_production_mesh(results):
     """Smoke gemma-2b (its vocabulary 4096) on (16, 16): a train step's and
-    a decode step's lookup reduce the rows and send nothing else; the
-    table came in whole along d from ``compute_params``' fsdp gather of
-    the rank's vocab shard over "data"."""
+    a decode step's lookup all-reduce the rows onto a hidden state whole
+    over "model" and send nothing else; the table came in whole along d
+    from ``compute_params``' fsdp gather of the rank's vocab shard over
+    "data"."""
     got = _get(results, "mesh_share")
     d = got["lookup_widths"][1]
     assert got["lookup"]["train"]["by_kind"] == {
         "all-reduce": 256 // 16 * 64 * d * 4}
     assert got["lookup"]["decode"]["by_kind"] == {
-        "reduce-scatter": 256 // 16 * d // 16 * 4}
+        "all-reduce": 256 // 16 * d * 4}
 
 
 def test_shard_to_shard_redistribution_counts_one_all_to_all(results):
