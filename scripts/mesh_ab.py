@@ -1,23 +1,26 @@
 """Trees of the port side by side on four cards: one served decode step
-of gemma-2b and one of deepseek-v3-671b (cut to 4 layers) on a (1, 4) mesh,
-and one mamba2-1.3b train step on (2, 2), each timed and traced by every
-rank, for each tree in turn in one call.
+of gemma-2b, one of deepseek-v3-671b (cut to 4 layers) and one of
+mamba2-1.3b on a (1, 4) mesh, and one mamba2-1.3b train step on (2, 2),
+each timed and traced by every rank, for each tree in turn in one call.
 
     python3 scripts/mesh_ab.py --roots build/a,build/b,.,.,build/b,build/a
+    python3 scripts/mesh_ab.py --roots build/a,.,.,build/a --steps mamba
     PYTHONPATH=src python3 scripts/mesh_ab.py --cpu --roots ...  # gloo, smoke
 
 A tree is a checkout of the repository (``git archive`` of a commit unpacked
 into a directory that ``.gitignore`` lists); each runs with its own
 ``src/``, ``chip_smoke.py`` and ``scripts/mesh_smoke.py``, whose jobs and
 helpers it uses: ``[mesh_serve]``'s bf16 decode step at a 64-slot cache's
-last position (batch 4, full width; gemma-2b at full depth, deepseek-v3 at
-``[mesh_serve]``'s bf16 depth) and its tokens/s over one ``generate`` of
-the job's prompts, and ``[mesh_train]``'s mamba2 step (full depth).  The
+last position (batch 4, full width; gemma-2b and mamba2 at full depth,
+deepseek-v3 at ``[mesh_serve]``'s bf16 depth) and, but for mamba2's, its
+tokens/s over one ``generate`` of the job's prompts, and
+``[mesh_train]``'s mamba2 step (full depth).  ``--steps`` runs some of
+them only.  The
 kernels are built once, in parallel, and handed to every tree (a
 library's name carries its source's digest).
 
 For each tree, one line ``[mesh_ab] {...}``: per step (``decode``,
-``deepseek``, ``train``), the wall ms without the profiler (rank 0's),
+``deepseek``, ``mamba``, ``train``), the wall ms without the profiler (rank 0's),
 then from a ``torch.profiler`` trace of as many
 calls on every rank: device busy ms and the NCCL kernels' share of it (the
 largest rank's), the aten ops and the collectives dispatched a call, and the
@@ -46,8 +49,12 @@ import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "mesh_ab"
-CALLS = {"decode": 4, "deepseek": 4, "train": 1}
-STEPS = tuple(CALLS)
+CALLS = {"decode": 4, "deepseek": 4, "mamba": 4, "train": 1}
+# the served decode steps: (arch, whether its tokens/s over a generate is
+# taken); mamba2's is not (a tree whose meshed step gathers the SSM state
+# takes ~1 s a token on (1, 4), a minute a generate)
+SERVED = {"decode": ("gemma-2b", True), "deepseek": ("deepseek-v3-671b", True),
+          "mamba": ("mamba2-1.3b", False)}
 RUN_TIMEOUT_S = {False: 300, True: 600}      # a tree's run, by --cpu
 
 
@@ -92,8 +99,8 @@ def trace(fn, calls: int, device) -> dict:
             "host_top_ms": dict(top)}
 
 
-def role_rank(root: Path, cpu: bool, out: Path) -> None:
-    """One torchrun rank of one tree: its decode and its train steps."""
+def role_rank(root: Path, cpu: bool, out: Path, steps) -> None:
+    """One torchrun rank of one tree: its ``steps``."""
     sys.path[:0] = [str(root / "scripts"), str(root / "src"), str(root)]
     import mesh_smoke as ms
     from repro_torch.core.storage import MemoryProvider
@@ -103,29 +110,34 @@ def role_rank(root: Path, cpu: bool, out: Path) -> None:
     device = init_from_env("cpu" if cpu else None)
     res = {"rank": dist.get_rank()}
     try:
-        for step, arch in (("decode", ms.GEMMA), ("deepseek", ms.DEEPSEEK)):
+        for step, (arch, generate) in SERVED.items():
+            if step not in steps:
+                continue
             job = ms.serve_job(arch, cpu, model_axis=4)
             layers = ms.SERVE_LAYERS.get(arch, (None, None))[1]
             with ms.arch_override(**ms.cut(arch, layers)):
                 srv = Server(job)
-            srv.generate(ms.prompts(srv.cfg.vocab_size, job))
+            if generate:
+                srv.generate(ms.prompts(srv.cfg.vocab_size, job))
             res[f"mesh_{step}"] = list(srv.mesh.shape)
             res[step] = dict(trace(ms._decode_step(srv, job.batch, 64),
                                    CALLS[step], device),
-                             tokens_per_s=srv.throughput(),
-                             layers=srv.cfg.num_layers)
+                             tokens_per_s=srv.throughput() if generate
+                             else None, layers=srv.cfg.num_layers)
             del srv
             gc.collect()
             if not cpu:
                 torch.cuda.empty_cache()
-        job = dataclasses.replace(ms.train_job(ms.MAMBA2, cpu, 2), steps=1)
-        t = Trainer(job, ckpt=ms._Kept(MemoryProvider()),
-                    data_ds=ms._lake(ms.MAMBA2, job, cpu))
-        st = t.run(restore=False)["state"]
-        res["mesh_train"] = list(t.mesh.shape)
-        batch = next(t._batches())
-        res["train"] = trace(lambda: t.step_fn(st, batch), CALLS["train"],
-                             device)
+        if "train" in steps:
+            job = dataclasses.replace(ms.train_job(ms.MAMBA2, cpu, 2),
+                                      steps=1)
+            t = Trainer(job, ckpt=ms._Kept(MemoryProvider()),
+                        data_ds=ms._lake(ms.MAMBA2, job, cpu))
+            st = t.run(restore=False)["state"]
+            res["mesh_train"] = list(t.mesh.shape)
+            batch = next(t._batches())
+            res["train"] = trace(lambda: t.step_fn(st, batch),
+                                 CALLS["train"], device)
     finally:
         Path(f"{out}.rank{dist.get_rank()}.json").write_text(json.dumps(res))
         destroy()
@@ -151,7 +163,7 @@ def _card() -> str | None:
         return None
 
 
-def _run(i: int, root: Path, cpu: bool) -> dict:
+def _run(i: int, root: Path, cpu: bool, steps) -> dict:
     """One tree's torchrun -> its ``[mesh_ab]`` line."""
     for so in (ROOT / "build").glob("*.so"):
         if root.resolve() != ROOT and not (root / "build" / so.name).exists():
@@ -160,7 +172,8 @@ def _run(i: int, root: Path, cpu: bool) -> dict:
     out = OUT / str(i)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", "4", __file__, "--role", "rank",
-           "--root", str(root), "--out", str(out)] + (["--cpu"] if cpu else [])
+           "--root", str(root), "--out", str(out), "--steps",
+           ",".join(steps)] + (["--cpu"] if cpu else [])
     env = dict(os.environ, OMP_NUM_THREADS="1" if cpu else
                os.environ.get("OMP_NUM_THREADS", "4"))
     t0 = time.perf_counter()
@@ -174,7 +187,7 @@ def _run(i: int, root: Path, cpu: bool) -> dict:
     ranks = [json.loads(p.read_text()) for p in
              sorted(OUT.glob(f"{i}.rank*.json"))]
     line = {"root": str(root), "rc": rc, "s": time.perf_counter() - t0}
-    for step in STEPS:
+    for step in steps:
         got = [r[step] for r in ranks if step in r]
         if len(got) != 4:
             continue
@@ -185,7 +198,7 @@ def _run(i: int, root: Path, cpu: bool) -> dict:
     return line
 
 
-def lead(roots, cpu: bool) -> int:
+def lead(roots, cpu: bool, steps) -> int:
     if not cpu and torch.cuda.device_count() < 4:
         print(f"mesh_ab: {torch.cuda.device_count()} CUDA devices visible, "
               "4 needed", file=sys.stderr)
@@ -197,8 +210,8 @@ def lead(roots, cpu: bool) -> int:
         _build_kernels()
     ok = True
     for i, root in enumerate(roots):
-        line = _run(i, Path(root), cpu)
-        ok &= line["rc"] == 0 and all(step in line for step in STEPS)
+        line = _run(i, Path(root), cpu, steps)
+        ok &= line["rc"] == 0 and all(step in line for step in steps)
         print("[mesh_ab] " + json.dumps(line), flush=True)
     card = _card()
     if card:
@@ -214,14 +227,19 @@ def main() -> int:
                          "build/b,build/a")
     ap.add_argument("--cpu", action="store_true",
                     help="gloo on the CPU, smoke configs")
+    ap.add_argument("--steps", default=",".join(CALLS),
+                    help="which steps, e.g. mamba or decode,train")
     ap.add_argument("--role", choices=("lead", "rank"), default="lead")
     ap.add_argument("--root", default=None)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    steps = tuple(args.steps.split(","))
+    if any(step not in CALLS for step in steps):
+        ap.error(f"--steps: each of {', '.join(CALLS)}")
     if args.role == "rank":
-        role_rank(Path(args.root).resolve(), args.cpu, Path(args.out))
+        role_rank(Path(args.root).resolve(), args.cpu, Path(args.out), steps)
         return 0
-    return lead([r for r in args.roots.split(",")], args.cpu)
+    return lead([r for r in args.roots.split(",")], args.cpu, steps)
 
 
 if __name__ == "__main__":

@@ -28,13 +28,18 @@ the same phases, the same gates and the same references:
     tokens equal to one card's (deepseek-v3 at depth 3, under the decode
     rules); bf16 tokens/s and a decode step's idle share beside one card's
     (deepseek-v3 at depth 4, whose fourth layer is the MoE on expert
-    shards); the decode kernel's launches exact.
-``[mesh_dryrun]``  the train steps as below; and deepseek-v3's decode step
-    (depth 4, batch 4) counted on a fake (1, 4) group at two cache lengths,
-    whose collectives must be equal: nothing a layer sends grows with the
-    cache; and no collective of it may be as large as one rank's vocab
-    shard of the embedding table (each rank looks its tokens up in its own
-    shard).  Each line gives the lookup's own collectives.
+    shards); the decode kernel's launches exact; each rank's traced
+    mamba2 and zamba2 decode step sends exactly the collectives that
+    ``mamba_decode_collectives`` gives (and the logits' all-gather).
+``[mesh_dryrun]``  the train steps as below; and deepseek-v3's (depth 4),
+    mamba2's and zamba2's decode step (batch 4) counted on a fake (1, 4)
+    group at two cache lengths, on a "cpu" and a "cuda" fake mesh, whose
+    collectives must be equal: nothing a layer sends grows with the
+    cache; no collective of it may be as large as one rank's vocab shard
+    of the embedding table (each rank looks its tokens up in its own
+    shard); a mamba step's collectives, by kind, count and bytes, are
+    ``mamba_decode_collectives``'s (no SSM state gathered).  Each line
+    gives the lookup's own collectives.
 
 The ``dense_moe`` part:
 
@@ -201,7 +206,8 @@ PARTS = {
                     serve=((MAMBA2, ((1, 4),)), (ZAMBA2, ((1, 4),)),
                            (DEEPSEEK, ((1, 4),))),
                     seq=None, allreduce=None,
-                    decode_dryrun=((DEEPSEEK, (1, 4)),),
+                    decode_dryrun=((DEEPSEEK, (1, 4)), (MAMBA2, (1, 4)),
+                                   (ZAMBA2, (1, 4))),
                     ref_s=420, run_s=480, deadline_s=1080),
 }
 
@@ -290,6 +296,36 @@ def cut(arch: str, layers: Optional[int], **changes) -> dict:
             changes["moe"] = dataclasses.replace(moe,
                                                  first_dense_layers=layers)
     return changes
+
+
+def mamba_decode_collectives(cfg, batch: int) -> Optional[dict]:
+    """The collectives of a served decode step of an ssm or hybrid ``cfg``
+    at ``batch`` on a (1, 4) mesh, as the dry run counts them (the
+    server's all-gather of the logits apart): the lookup's all-reduce of
+    the (B, 1, d) rows; per mamba layer two all-gathers, the projection's
+    (B, 1, proj_out) row and the convolution's output row (B, 1, conv_dim),
+    and two all-reduces, the gated norm's fp32 (B, 1, 1) sum of squares
+    and the output's (B, 1, d) pending sum; two all-reduces of (B, 1, d) a
+    shared-block invocation (zamba2).  No all-gather of the SSM state.  At
+    full width, batch 4: mamba2-1.3b 96 all-gathers (4,939,776 B) and 97
+    all-reduces (803,584 B); zamba2-2.7b 108 (6,780,672 B) and 127
+    (1,495,904 B).  None for a family with no mamba layer."""
+    from repro_torch.models.param import torch_dtype
+    if cfg.family not in ("ssm", "hybrid"):
+        return None
+    s, d, item = cfg.ssm, cfg.d_model, torch_dtype(cfg.dtype).itemsize
+    conv = cfg.expand_dim + 2 * s.n_groups * s.d_state
+    proj = 2 * cfg.expand_dim + 2 * s.n_groups * s.d_state + cfg.ssm_heads
+    shared, layers = 0, cfg.num_layers
+    if cfg.family == "hybrid":
+        P = cfg.hybrid.shared_attn_period
+        shared, layers = cfg.num_layers // P, cfg.num_layers // P * P
+    rows = 1 + layers + 2 * shared            # (B, 1, d) all-reduces
+    return {"collective_count": {"all-gather": 2 * layers,
+                                 "all-reduce": rows + layers},
+            "collective_by_kind": {
+                "all-gather": layers * batch * (proj + conv) * item,
+                "all-reduce": rows * batch * d * item + layers * batch * 4}}
 
 
 @contextlib.contextmanager
@@ -419,6 +455,26 @@ def _decode_step(srv, B: int, T: int):
               else torch.inference_mode()):
             srv._step(cache, tokens, T - 1)
     return step
+
+
+def _collectives(fn, calls: int = 2) -> dict:
+    """The collectives ``fn`` dispatches a call on this rank, by kind, from
+    a ``torch.profiler`` trace of ``calls`` calls (the host's record of each
+    ``_c10d_functional`` op; every rank calls ``fn`` as often)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.op_analysis import COLLECTIVES
+    fn()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(calls):
+            fn()
+    got = {}
+    for e in prof.key_averages():
+        ns, _, op = e.key.partition("::")
+        if ns == "_c10d_functional" and op in COLLECTIVES:
+            kind = COLLECTIVES[op]
+            got[kind] = got.get(kind, 0) + e.count / calls
+    return got
 
 
 # --------------------------------------------------- the phases' work
@@ -572,7 +628,21 @@ def _serve(arch: str, cpu: bool, model_axis: int, rank: int, device,
                                             ._attention_layers(srv.cfg)
                                             * total}),
             "decode_step": _profiled(_decode_step(srv, job.batch, 64), rank,
-                                     device, cs.kernel_times)}
+                                     device, cs.kernel_times),
+            "collectives": _collectives(_decode_step(srv, job.batch, 64)),
+            "collectives_want": _served_collectives(srv.cfg, job.batch)}
+
+
+def _served_collectives(cfg, batch: int) -> Optional[dict]:
+    """What a served mamba decode step sends on (1, 4), by kind: the dry
+    run's count (``mamba_decode_collectives``) and the server's all-gather
+    of the logits; None for a family with no mamba layer."""
+    want = mamba_decode_collectives(cfg, batch)
+    if want is None:
+        return None
+    count = dict(want["collective_count"])
+    count["all-gather"] += 1
+    return count
 
 
 # ------------------------------------------------------------ references
@@ -978,7 +1048,9 @@ def role_dryrun_decode(arch: str, shape, cpu: bool,
     if cpu:
         cfg = reduce_for_smoke(cfg)
     mesh = make_fake_mesh(shape=shape, device_type=fake_device)
-    out = {"layers": cfg.num_layers, "by_T": {}}
+    # a mamba decode step's collectives on (1, 4), as they should count
+    out = {"layers": cfg.num_layers, "by_T": {}, "want": (
+        mamba_decode_collectives(cfg, 4) if tuple(shape) == (1, 4) else None)}
     for T in DECODE_DRY_T:
         t0 = time.perf_counter()
         sc = ShapeConfig(f"decode_{T}", T, 4, "decode")
@@ -1094,9 +1166,20 @@ def lead(cpu: bool, plan: Plan, passed: list) -> int:
                       stderr=open(OUT / f"{name}.err", "w"))
     dry = {(arch, m): dry_run("dryrun", arch, m, f"dryrun_{arch}_{_name(m)}")
            for arch, meshes in plan.train for m in meshes}
-    dry.update({("decode", arch, m): dry_run(
-        "dryrun_decode", arch, m, f"dryrun_decode_{arch}_{_name(m)}")
-        for arch, m in plan.decode_dryrun})
+    # a decode step also on a "cuda" fake mesh on the card host, whose
+    # DTensor dispatches as on the cards (the CUDA build needs a card
+    # visible; it launches nothing)
+    fakes = ("cpu",) if cpu else ("cpu", "cuda")
+    for arch, m in plan.decode_dryrun:
+        for fake in fakes:
+            name = _dry_name("dryrun_decode", arch, m, fake)
+            dry["decode", arch, m, fake] = _start(
+                ["--role", "dryrun_decode", "--arch", arch, "--mesh",
+                 _name(m), "--fake-device", fake, *flag],
+                cpu_env if fake == "cpu" else
+                dict(env, CUDA_VISIBLE_DEVICES="0", OMP_NUM_THREADS="2"),
+                stdout=subprocess.DEVNULL,
+                stderr=open(OUT / f"{name}.err", "w"))
     failed = []
     t0 = time.perf_counter()
     rc = _wait(_start(["--role", "ref", *flag],
@@ -1264,8 +1347,14 @@ def report(runs, ref, plan: Plan, card) -> list:
             got, err = _phase(ranks, f"serve {arch}")
             one = ref["serve"].get(arch, {})
             want = one.get("fp32_tokens")
+            # a mamba decode step's collectives on (1, 4), from each rank's
+            # trace, as the dry run counts them (mamba_decode_collectives)
+            coll_ok = err is None and (m != (1, 4) or all(
+                g["collectives_want"] is None
+                or g["collectives"] == g["collectives_want"] for g in got))
             ok = err is None and want is not None and all(
-                g["fp32_tokens"] == want for g in got) and _exact(got, card)
+                g["fp32_tokens"] == want for g in got) and \
+                _exact(got, card) and coll_ok
             r0 = got[0] or {}
             _say("mesh_serve", card=card, arch=arch, mesh=list(m), held=ok,
                  error=err, layers=r0.get("layers"),
@@ -1276,7 +1365,11 @@ def report(runs, ref, plan: Plan, card) -> list:
                  one_card={k: one.get(k) for k in (
                      "tokens_per_s", "decode_step", "launches")},
                  launches_by_rank=[(g or {}).get("launches") for g in got],
-                 launches_exact=err is None and _exact(got, card))
+                 launches_exact=err is None and _exact(got, card),
+                 collectives_by_rank=[(g or {}).get("collectives")
+                                      for g in got],
+                 collectives_want=r0.get("collectives_want"),
+                 collectives_held=coll_ok)
             if not ok:
                 failed.append(f"serve {arch} {_name(m)}")
         if m == plan.seq:
@@ -1340,29 +1433,36 @@ def report_dryrun(runs, plan: Plan, cpu: bool, card) -> list:
             if not ok:
                 failed.append(f"dryrun {arch} {_name(m)}")
     for arch, m in plan.decode_dryrun:
-        name = f"dryrun_decode_{arch}_{_name(m)}"
-        pred = _load(OUT / f"{name}.json")
-        if pred is None:
-            err, line = (OUT / f"{name}.err").read_text()[-3000:], {}
-        else:
-            err = None
-            by_T = list(pred["by_T"].values())
-            # no collective of a decode step as large as one rank's vocab
-            # shard of the embedding table
-            line = dict(layers=pred["layers"], by_T=pred["by_T"],
-                        equal_collectives=all(
-                            t["collective_by_kind"] ==
-                            by_T[0]["collective_by_kind"] for t in by_T),
-                        moves_no_table=all(
-                            t["largest_collective"]
-                            < t["lookup"]["table_shard_bytes"]
-                            for t in by_T))
-        ok = err is None and line["equal_collectives"] and \
-            line["moves_no_table"]
-        _say("mesh_dryrun", card=card, arch=arch, mesh=list(m),
-             step="decode", held=ok, error=err, **line)
-        if not ok:
-            failed.append(f"dryrun decode {arch} {_name(m)}")
+        for fake in ("cpu",) if cpu else ("cpu", "cuda"):
+            name = _dry_name("dryrun_decode", arch, m, fake)
+            pred = _load(OUT / f"{name}.json")
+            if pred is None:
+                err, line = (OUT / f"{name}.err").read_text()[-3000:], {}
+            else:
+                err = None
+                by_T = list(pred["by_T"].values())
+                want = pred["want"]
+                # no collective of a decode step as large as one rank's
+                # vocab shard of the embedding table; a mamba step's
+                # collectives as mamba_decode_collectives counts them
+                line = dict(layers=pred["layers"], by_T=pred["by_T"],
+                            want=want, equal_collectives=all(
+                                t["collective_by_kind"] ==
+                                by_T[0]["collective_by_kind"] for t in by_T),
+                            moves_no_table=all(
+                                t["largest_collective"]
+                                < t["lookup"]["table_shard_bytes"]
+                                for t in by_T),
+                            as_counted=want is None or all(
+                                {k: t[k] for k in want} == want
+                                for t in by_T))
+            ok = err is None and line["equal_collectives"] and \
+                line["moves_no_table"] and line["as_counted"]
+            _say("mesh_dryrun", card=card, arch=arch, mesh=list(m),
+                 step="decode", fake_device=fake, held=ok, error=err,
+                 **line)
+            if not ok:
+                failed.append(f"dryrun decode {arch} {_name(m)} {fake}")
     return failed
 
 

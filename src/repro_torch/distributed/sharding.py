@@ -270,7 +270,7 @@ def gather_over(x: torch.Tensor, mesh, dims) -> torch.Tensor:
     from torch.distributed import _functional_collectives as funcol
     # all_gather_tensor's new name, where torch has it
     gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
-    x = x[None]
+    x = x.contiguous()[None]          # some torch versions gather no view
     for i in reversed(tuple(dims)):
         x = gather(x, 0, (mesh, i))
         if isinstance(x, funcol.AsyncCollectiveTensor):

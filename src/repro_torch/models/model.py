@@ -772,13 +772,11 @@ class Model:
 
     def _ssm_step(self, p, h, state, conv):
         """One mamba layer's decode step; ``state`` and ``conv`` are updated
-        in place."""
+        in place (under a mesh, each rank's own shards of them)."""
         p = self._whole(p)
         hn = rmsnorm(p["ln"], h, self.cfg.norm_eps)
-        out, new_state, new_conv = ssm_lib.mamba2_decode_step(
-            p["ssm"], hn, state, conv, self.cfg)
-        state.copy_(new_state)
-        conv.copy_(new_conv)
+        out = ssm_lib.mamba2_decode_step(p["ssm"], hn, state, conv,
+                                         self.cfg)[0]
         return self.shard(h + out, ("batch", None, None))
 
     def _decode_hybrid(self, params, cache, h, pos: int):

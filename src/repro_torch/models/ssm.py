@@ -30,10 +30,10 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import (_groups_of, distribute,
-                                              is_dtensor, local_call,
-                                              reduce_pending, share_sum,
-                                              unshard)
+from repro_torch.distributed.sharding import (_groups_of, _local_range,
+                                              distribute, gather_over,
+                                              is_dtensor, reduce_pending,
+                                              share_sum)
 
 from .param import ParamSpec
 
@@ -65,24 +65,6 @@ def ssm_specs(cfg, stack: Tuple[int, ...] = ()) -> Dict[str, ParamSpec]:
         "out_proj": ParamSpec(stack + (d_in, d), ax + ("model", "fsdp"),
                               dtype=cfg.dtype),
     }
-
-
-def _split_proj(zxbcdt: torch.Tensor, cfg):
-    """z, x, B, C and dt from the input projection.  Under a mesh the
-    projection is first made whole along its last dim, as slicing a dim
-    split over the model axis would make it implicitly (the pieces' bounds
-    are not the shards'); explicit, its gradient is a plain split, where
-    DTensor's implicit one left a strided split that it places only by
-    reading values (a fake tensor has none)."""
-    s = cfg.ssm
-    d_in, G, N = cfg.expand_dim, s.n_groups, s.d_state
-    zxbcdt = unshard(zxbcdt, -1)
-    z = zxbcdt[..., :d_in]
-    x = zxbcdt[..., d_in:2 * d_in]
-    Bm = zxbcdt[..., 2 * d_in:2 * d_in + G * N]
-    Cm = zxbcdt[..., 2 * d_in + G * N:2 * d_in + 2 * G * N]
-    dt = zxbcdt[..., 2 * d_in + 2 * G * N:]
-    return z, x, Bm, Cm, dt
 
 
 def _conv_shifts(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -246,6 +228,20 @@ def _on_heads(p, zxbcdt, cfg, scan, h0: int, H: int, total=lambda s: s):
     return y @ p["out_proj"], h_final, xbc_raw
 
 
+def _heads_of(A_log, mesh, nh: int):
+    """(the mesh dims that split the heads, as they split ``A_log``; the
+    first of this rank's heads; how many it holds)."""
+    from torch.distributed.tensor import Shard
+    heads = [i for i in range(mesh.ndim)
+             if is_dtensor(A_log) and A_log.placements[i] == Shard(0)]
+    split, index = 1, 0
+    for i in heads:
+        split *= mesh.shape[i]
+        index = index * mesh.shape[i] + mesh.get_coordinate()[i]
+    H = nh // split
+    return heads, index * H, H
+
+
 def ssd_per_shard(scan, p, zxbcdt, cfg):
     """The layer from ``zxbcdt``, its input projection's output, to its
     output projection, each rank on its own heads -> (out, the final state
@@ -274,14 +270,8 @@ def ssd_per_shard(scan, p, zxbcdt, cfg):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = zxbcdt.device_mesh
     dims = range(mesh.ndim)
-    A = p["A_log"]
-    heads = [i for i in dims if is_dtensor(A) and A.placements[i] == Shard(0)]
+    heads, h0, H = _heads_of(p["A_log"], mesh, nh)
     batch = [i for i in dims if zxbcdt.placements[i] == Shard(0)]
-    split, index = 1, 0
-    for i in heads:
-        split *= mesh.shape[i]
-        index = index * mesh.shape[i] + mesh.get_coordinate()[i]
-    H = nh // split
 
     def local(t, held, grad, rows=False):
         """t's shard: per mesh dim, ``held`` on a heads dim, on a batch dim
@@ -301,7 +291,7 @@ def ssd_per_shard(scan, p, zxbcdt, cfg):
     for k in ("conv_w", "conv_b"):
         lp[k] = local(p[k], Replicate(), Partial())
     out, state, xbc = _on_heads(
-        lp, zx, cfg, scan, index * H, H,
+        lp, zx, cfg, scan, h0, H,
         lambda s: share_sum(s, mesh, heads))
     place = lambda held: [held if i in heads else Shard(0) if i in batch
                           else Replicate() for i in dims]
@@ -337,40 +327,105 @@ def mamba2_forward(params, u: torch.Tensor, cfg, *, impl: str = "kernel",
     return out
 
 
+def _step_on_heads(p, zx, state, conv, cfg, h0: int, H: int, c0: int = 0,
+                   gather=lambda c: c, total=lambda s: s) -> torch.Tensor:
+    """One token's step of the layer from its input projection's output
+    ``zx`` (B, 1, ...), whole along its channels, to its output projection,
+    for the heads ``[h0, h0 + H)``, on plain tensors -> out (B, 1, d).
+
+    ``state`` (B, H, N, P) holds those heads' SSM state and ``conv`` (B,
+    K-1, C) the conv cache's channels ``[c0, c0 + C)``; both are updated in
+    place.  ``p``'s per-head leaves (``A_log``, ``D``, ``dt_bias``,
+    ``norm`` and ``out_proj``'s rows) hold the heads, ``conv_w`` and
+    ``conv_b`` the conv cache's channels.  ``gather`` makes the
+    convolution's output on those channels (B, C) whole (B, conv_dim);
+    ``total`` makes the gated norm's sum of squares whole over the ranks
+    that hold the other heads, and ``out`` is then this rank's share of the
+    output projection's sum.  With every head and channel it computes
+    JAX's step, op for op."""
+    s = cfg.ssm
+    d_in, G, N, P, nh = (cfg.expand_dim, s.n_groups, s.d_state, s.head_dim,
+                         cfg.ssm_heads)
+    xbc = zx[..., d_in:2 * d_in + 2 * G * N]               # (B,1,conv_dim)
+    window = torch.cat([conv, xbc[..., c0:c0 + conv.shape[-1]]], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
+    conv.copy_(window[:, 1:])
+    conv_out = gather(F.silu(conv_out))[:, None]           # (B,1,conv_dim)
+    xt = conv_out[..., h0 * P:(h0 + H) * P].reshape(-1, H, P)
+    Bt, Ct = (_groups_of(conv_out[..., d_in + i * G * N:d_in + (i + 1) * G * N]
+                         .reshape(-1, G, N), 1, h0, H, nh // G)
+              for i in (0, 1))
+    Bt = Bt.repeat_interleave(H // Bt.shape[1], dim=1)
+    Ct = Ct.repeat_interleave(H // Ct.shape[1], dim=1)
+    dt = zx[..., 2 * d_in + 2 * G * N + h0:2 * d_in + 2 * G * N + h0 + H]
+    dtt = F.softplus(dt.float() + p["dt_bias"])[:, 0]
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dtt * A)                              # (B,H)
+    new_state = state * decay[..., None, None] + torch.einsum(
+        "bhn,bhp,bh->bhnp", Bt, xt, dtt.to(xt.dtype)).to(state.dtype)
+    y = torch.einsum("bhn,bhnp->bhp", Ct, new_state.to(Ct.dtype))
+    state.copy_(new_state)
+    y = y + xt * p["D"][:, None].to(xt.dtype)
+    y = y.reshape(-1, 1, H * P)
+    y = _gated_norm(p["norm"], y, zx[..., h0 * P:(h0 + H) * P], cfg.norm_eps,
+                    total, d_in)
+    return y @ p["out_proj"]
+
+
 def mamba2_decode_step(params, u: torch.Tensor, ssm_state: torch.Tensor,
                        conv_state: torch.Tensor, cfg):
     """One-token decode. u (B,1,d); ssm_state (B,nh,N,P);
-    conv_state (B,K-1,conv_dim). Returns (out, new_ssm_state, new_conv_state)."""
-    s = cfg.ssm
-    zxbcdt = u @ params["in_proj"]
-    z, x, Bm, Cm, dt = _split_proj(zxbcdt, cfg)
-    xbc = torch.cat([x, Bm, Cm], dim=-1)                   # (B,1,conv_dim)
-    window = torch.cat([conv_state, xbc], dim=1)           # (B,K,conv_dim)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) \
-        + params["conv_b"]
-    conv_out = F.silu(conv_out)[:, None]                   # (B,1,conv_dim)
-    new_conv_state = window[:, 1:]
-    d_in, G, N, nh = cfg.expand_dim, s.n_groups, s.d_state, cfg.ssm_heads
-    xt = conv_out[..., :d_in].reshape(-1, nh, s.head_dim)
-    Bt = conv_out[..., d_in:d_in + G * N].reshape(-1, G, N)
-    Ct = conv_out[..., d_in + G * N:].reshape(-1, G, N)
-    hg = nh // G
-    Bt = Bt.repeat_interleave(hg, dim=1)
-    Ct = Ct.repeat_interleave(hg, dim=1)
-    dtt = F.softplus(dt.float() + params["dt_bias"])[:, 0]
-    A = -torch.exp(params["A_log"])
+    conv_state (B,K-1,conv_dim). Returns (out, ssm_state, conv_state), the
+    two caches updated in place.
 
-    def recur(xt, state, Bt, Ct, dtt, A):
-        decay = torch.exp(dtt * A)                          # (B,nh)
-        new_state = state * decay[..., None, None] + torch.einsum(
-            "bhn,bhp,bh->bhnp", Bt, xt, dtt.to(xt.dtype)).to(state.dtype)
-        return (torch.einsum("bhn,bhnp->bhp", Ct, new_state.to(Ct.dtype)),
-                new_state)
-    # on each rank's (batch, head) shards under a mesh, as ssd_per_shard
-    y, new_state = local_call(
-        recur, xt, (), ((ssm_state, 1), (Bt, 1), (Ct, 1), (dtt, 1), (A, 0)),
-        q_dim=1, group_dim=1, outs=((0, None), (0, 1)))
-    y = y + xt * params["D"][:, None].to(xt.dtype)
-    y = y.reshape(-1, 1, d_in)
-    y = _gated_norm(params["norm"], y, z, cfg.norm_eps)
-    return y @ params["out_proj"], new_state, new_conv_state
+    Under a mesh each rank works on the caches' shards it holds, on plain
+    tensors (:func:`_step_on_heads`): the projection's row made whole along
+    its channels for the rank's batch rows (one all-gather over the model
+    split); the convolution on the conv cache's own channel shard (JAX's
+    layout, split over "model" where the mesh divides conv_dim), whose
+    output row is all-gathered (no collective where the cache is whole);
+    the recurrence of the heads that the mesh dims splitting ``A_log`` give
+    it, on its own shard of the state, which is never gathered; the gated
+    norm's sum of squares all-reduced over those dims; its rows of the
+    output projection, whose output is left a pending sum over them."""
+    nh = cfg.ssm_heads
+    zxbcdt = u @ params["in_proj"]
+    if not is_dtensor(zxbcdt):
+        return (_step_on_heads(params, zxbcdt, ssm_state, conv_state, cfg, 0,
+                               nh), ssm_state, conv_state)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = zxbcdt.device_mesh
+    dims = range(mesh.ndim)
+    heads, h0, H = _heads_of(params["A_log"], mesh, nh)
+    batch = [i for i in dims if ssm_state.placements[i] == Shard(0)]
+    chans = [i for i in dims if conv_state.placements[i] == Shard(2)]
+    want = [Shard(1) if i in heads else Shard(0) if i in batch
+            else Replicate() for i in dims]
+    if list(ssm_state.placements) != want or any(
+            (conv_state.placements[i] == Shard(0)) != (i in batch)
+            for i in dims):
+        raise ValueError(f"the SSM state placed {ssm_state.placements} and "
+                         f"the conv cache {conv_state.placements}: the state "
+                         f"must split its heads as A_log does, and both "
+                         f"their batch alike")
+    local = lambda t, split, d: distribute(t, mesh, [
+        Shard(d) if i in split else Replicate() for i in dims]).to_local()
+    zx = local(zxbcdt, batch, 0)      # the batch's rows, every channel
+    lp = {k: local(params[k], heads, 0)
+          for k in ("A_log", "D", "dt_bias", "norm", "out_proj")}
+    lp["conv_w"] = local(params["conv_w"], chans, 1)
+    lp["conv_b"] = local(params["conv_b"], chans, 0)
+    c0 = _local_range(conv_state, 2)[0]
+
+    def gather(c):
+        if not chans:
+            return c
+        return gather_over(c, mesh, chans).movedim(0, 1).reshape(
+            c.shape[0], -1)
+    out = _step_on_heads(lp, zx, ssm_state.to_local(), conv_state.to_local(),
+                         cfg, h0, H, c0, gather,
+                         lambda s: share_sum(s, mesh, heads))
+    place = [Partial() if i in heads else Shard(0) if i in batch
+             else Replicate() for i in dims]
+    return (DTensor.from_local(out, mesh, place, run_check=False), ssm_state,
+            conv_state)

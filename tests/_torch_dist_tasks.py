@@ -314,6 +314,47 @@ def decode_counted(arch: str) -> dict:
             "bytes": counter.costs.collective_by_kind}
 
 
+def mamba_decode_on(arch: str, model_axis: int) -> dict:
+    """Two decode steps of smoke ``arch`` served on a world of 4 with
+    ``model_axis``, from an empty cache, as ``decode_logits`` takes them:
+    the first step's collectives by kind, the whole step's and its mamba
+    layers' (``Model._ssm_step``, each layer's fsdp gathers made before
+    it), the largest collective, the caches' placements after both steps against
+    their specs', and this rank's shards of the state and conv caches with
+    their offsets."""
+    from repro_torch.distributed.sharding import _local_box
+    from repro_torch.launch.op_analysis import OpCounter
+    srv = Server(serve_job(arch, model_axis))
+    model = srv.model
+    specs = model.cache_specs(2, 6)
+    cache = srv._place(specs, model.init_cache(2, 6, "cpu"))
+    counter = OpCounter()
+    layer = counter.scope("mamba", model._ssm_step)
+    model._ssm_step = lambda p, *args: layer(model._whole(p), *args)
+    tokens = np.random.default_rng(6).integers(0, 512, (2, 6))
+    with torch.no_grad():
+        with counter:
+            srv._step(cache, np.ascontiguousarray(tokens[:, 0]), 0)
+        srv._step(cache, np.ascontiguousarray(tokens[:, 1]), 1)
+    want = dict(named_leaves(sharding_for_specs(specs, srv.mesh, srv.rules)))
+    out = {"mesh": tuple(srv.mesh.shape),
+           "count": counter.costs.collective_count,
+           "bytes": counter.costs.collective_by_kind,
+           "layer": counter.costs.scoped["mamba"],
+           "largest": counter.costs.largest_collective}
+    for name in ("state", "conv"):
+        t = cache[name]
+        out[name] = {"placements": str(t.placements),
+                     "spec_placements": str(want[name]),
+                     "local": t.to_local().numpy().copy(),
+                     "offset": tuple(_local_box(t.shape, t.device_mesh,
+                                                t.placements)[1])}
+    return out
+
+
+MAMBA_DECODE_ARCHS = ("mamba2-1.3b", "zamba2-2.7b")
+
+
 def ssm_batch() -> dict:
     """numpy tokens, targets and loss mask of a smoke train batch (4, 64):
     two of the smoke ssm configs' 32-token chunks."""
@@ -359,7 +400,8 @@ def ssm_grads(mesh=None) -> dict:
 GQA_GROUPS = {"one_group": dict(H=8, Hkv=1), "straddle": dict(H=12, Hkv=3)}
 GQA_IMPLS = ("kernel", "torch", "torch_pairs")
 # served and prefilled on (1, 4) and (2, 2) under the serving rules
-MESH_SERVE_ARCHS = ("gemma-2b", "deepseek-v3-671b", "mamba2-1.3b")
+MESH_SERVE_ARCHS = ("gemma-2b", "deepseek-v3-671b", "mamba2-1.3b",
+                    "zamba2-2.7b")
 
 
 def gqa_group_inputs(H: int, Hkv: int):
@@ -526,6 +568,10 @@ def task_world4(rank, out, store_dir):
     out["ssm_grads"] = ssm_grads(mesh22)
     out["decode_counted"] = {a: decode_counted(a)
                              for a in ("gemma-2b", "deepseek-v3-671b")}
+    # a mamba layer's decode step on each rank's heads, (1, 4) and (2, 2)
+    out["mamba_decode"] = {(a, model_axis): mamba_decode_on(a, model_axis)
+                           for a in MAMBA_DECODE_ARCHS
+                           for model_axis in (4, 2)}
     out["gqa_groups"] = gqa_groups_on(mesh)
     # the serving rules on (1, 4) and (2, 2): each rank looks its tokens
     # up in its own vocab shard

@@ -573,6 +573,59 @@ def test_decode_hidden_state_is_whole_over_model_on_1x4(world4, arch):
         assert got["bytes"] == want_bytes, got
 
 
+@pytest.mark.parametrize("model_axis", [4, 2], ids=["1x4", "2x2"])
+@pytest.mark.parametrize("arch", tasks.MAMBA_DECODE_ARCHS)
+def test_mamba_decode_step_on_each_ranks_heads(world4, arch, model_axis):
+    """Two smoke decode steps served on (1, 4) and (2, 2): each mamba
+    layer sends exactly two all-gathers, the projection's (B/data, 1,
+    proj_out) row and the convolution's output row (B/data, 1, conv_dim),
+    and two all-reduces, the gated norm's (B/data, 1, 1) sum of squares
+    and the output's (B/data, 1, d) pending sum; the fp32 SSM state is
+    never gathered.  On (1, 4) the whole step adds only the lookup's
+    all-reduce, two a shared-block invocation (zamba2) and the logits'
+    all-gather; on (2, 2) it also gathers each layer's fsdp shards before
+    the layer.  The state and conv caches keep their specs' placements,
+    and each rank's shards of them, written in place, equal the matching
+    slices of the meshless port's caches to 2e-5."""
+    cfg = tasks.reduce_for_smoke(tasks.get_arch(arch))
+    s, d = cfg.ssm, cfg.d_model
+    conv = cfg.expand_dim + 2 * s.n_groups * s.d_state
+    proj = 2 * cfg.expand_dim + 2 * s.n_groups * s.d_state + cfg.ssm_heads
+    f32, B = 4, 2 // (4 // model_axis)          # the batch rows a rank holds
+    layers = cfg.num_layers if cfg.family == "ssm" else \
+        cfg.num_layers // cfg.hybrid.shared_attn_period * \
+        cfg.hybrid.shared_attn_period
+    want_layer = {"count": {"all-gather": 2 * layers,
+                            "all-reduce": 2 * layers},
+                  "by_kind": {"all-gather": f32 * layers * B * (proj + conv),
+                              "all-reduce": f32 * layers * B * (1 + d)}}
+    state_bytes = f32 * 2 * cfg.ssm_heads * s.d_state * s.head_dim
+    shared = cfg.num_layers // cfg.hybrid.shared_attn_period \
+        if cfg.family == "hybrid" else 0
+    ref = tasks.Server(tasks.serve_job(arch, 1))
+    cache = ref.model.init_cache(2, 6, "cpu")
+    tokens = np.random.default_rng(6).integers(0, 512, (2, 6))
+    with torch.no_grad():
+        for t in range(2):
+            ref._step(cache, np.ascontiguousarray(tokens[:, t]), t)
+    for rank in world4[0]:
+        got = rank["mamba_decode"][arch, model_axis]
+        assert got["mesh"] == (4 // model_axis, model_axis)
+        assert got["layer"] == want_layer, got["layer"]
+        if model_axis == 4:
+            assert got["count"] == {"all-gather": 2 * layers + 1,
+                                    "all-reduce": 1 + 2 * layers
+                                    + 2 * shared}, got["count"]
+            assert got["largest"] < state_bytes, got["largest"]
+        for name in ("state", "conv"):
+            leaf = got[name]
+            assert leaf["placements"] == leaf["spec_placements"], name
+            want = cache[name].numpy()[tuple(
+                slice(o, o + n) for o, n in zip(leaf["offset"],
+                                                leaf["local"].shape))]
+            assert _close(leaf["local"], want, 2e-5), (name, leaf["offset"])
+
+
 @pytest.mark.parametrize("impl", tasks.GQA_IMPLS)
 @pytest.mark.parametrize("name", sorted(tasks.GQA_GROUPS))
 def test_gqa_hands_each_rank_its_kv_groups_on_a_model_axis_of_4(world4,
