@@ -17,8 +17,9 @@ code is not 0:
    sweep, full gemma-2b widths (B=4, H=8, Hkv=1, D=256) at the served cache
    (T=64, every position, so every one where the split plan changes), at
    T=4096 and at the timed T=32768, each with a ring buffer past T, and
-   other configs' widths (granite's served cache among them) and edge cases
-   of head grouping and D; the
+   other configs' widths (granite's, phi-3-vision's, musicgen's and
+   starcoder2's served caches among them, and starcoder2's 4096-slot ring
+   wrapped past 8192) and edge cases of head grouping and D; the
    profiler's kernel names show each bf16 case on the tensor-core kernel,
    each fp32 case on the CUDA-core one, and a one-split case in one launch.
    Flash attention: the JAX flash sweep's shapes,
@@ -27,7 +28,8 @@ code is not 0:
    1, 2 and 8, zamba2's shared block (D=80), granite-moe-1b-a400m's training
    shape (B=4, S=1024, H=16, Hkv=8, D=64), MLA's training shape at full
    deepseek-v3 width (B=4, S=1024, H=Hkv=128, D=192: V padded to the QK
-   dim); the profiler's kernel names show
+   dim), the training shapes of phase 12's three models and starcoder2's
+   prefill at twice its window (B=1, S=8192); the profiler's kernel names show
    each bf16 case on the tensor-core kernel and each fp32 case on the
    CUDA-core one; the [prefill] phase's shape (B=4, S=32768, gemma-2b's
    widths) on three blocks of query rows against the plain
@@ -170,7 +172,24 @@ code is not 0:
    and each model's prefill and its continuation against its decode, as
    in phase 3, in fp32 (granite at its dropless capacity factor 16; the
    mamba layers scan through the plain ``ssd_chunked``, as in JAX);
-12. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
+12. families: full-width starcoder2-3b (30 layers, GQA with G=12, a
+   4096-token window, qkv bias), phi-3-vision-4.2b (32 layers, D=96, 256
+   image positions spliced in) and musicgen-medium (48 layers, 4 codebooks
+   of 2048, D=64), each at full depth (``family``): ``[train_*]``, phase
+   4's gates with no checkpoint (8 steps of 4 x 1024 Zipf tokens, musicgen's
+   as (B, 4, S) grids from ``TokenBatcher``, phi-3-vision's with the
+   Trainer's (4, 256, 1024) image embeddings; the flash kernel 2 x L times a
+   step), and its ``[dryrun]`` step; ``[serve_*]``, phase 3's ``serve``
+   (starcoder2 held in bf16, phi-3-vision text only and held in fp32) with
+   one Server, and for musicgen, which ``Server.generate`` does not take,
+   (4, 4, 32) prompts through ``make_prefill_step`` and 32 greedy steps of
+   ``make_decode_step`` (``_codebook_generate``), held in fp32 on its
+   (B, 4, V) logits; ``[past_window_*]``: a prompt prefilled, then 16
+   decode steps, against the forward over the whole, within 2e-2 in fp32 at
+   batch 1 (bf16 at batch 4 reported): starcoder2 at 8192 positions, twice
+   its window, so that decode writes ring slots 0-15 of a wrapped 4096-slot
+   cache; phi-3-vision 256 image and 768 text positions; musicgen 1024;
+13. numbers: ``{"kernels": [...]}`` with each kernel's launches on its main
    path, its largest error, and its time beside its bound, the plain
    version's and one PyTorch call's (none computes SSD, none crops and
    normalizes), at the main path's shapes (decode at gemma-2b's widths with
@@ -184,7 +203,11 @@ code is not 0:
    over a rotation of 5 batches, the ms of a call, and the 3.1 GB case); a
    ``[bound]`` line for each timed shape with the bytes and operations its
    bound comes from; decode and flash also at granite's served and
-   training shapes (H=16, Hkv=8, D=64); yardsticks for MLA, which runs no
+   training shapes (H=16, Hkv=8, D=64); decode at starcoder2's wrapped ring
+   (T=4096) and phi-3-vision's and musicgen's served caches, flash at the
+   three families' training shapes and starcoder2's windowed prefill (B=4,
+   S=8192, window 4096), each entry's launches counting phase 12's;
+   yardsticks for MLA, which runs no
    kernel: flash at MLA's training shape beside SDPA and the port's plain
    ``blockwise_attention``, and one absorbed ``mla_decode`` layer at B=4,
    T=32768 beside its byte bound; and the script's total time.
@@ -194,8 +217,9 @@ code is not 0:
 no mesh, each kernel call reported in place of a launch) against one real
 step of the same shape, dtype and remat on the card, right after the phase
 that runs it: gemma-2b training (phase 4), its prefill (phase 3a) and a
-decode step at the served cache (phase 3), mamba2-1.3b training (phase 7)
-and granite-moe-1b-a400m training (phase 10).  Gates: the predicted state
+decode step at the served cache (phase 3), mamba2-1.3b training (phase 7),
+granite-moe-1b-a400m training (phase 10) and the three families' training
+(phase 12).  Gates: the predicted state
 bytes equal the real state's exactly; the predicted kernel calls equal the
 launch counters' delta; and, for gemma-2b's training and prefill, the
 predicted peak is within ``PEAK_RTOL`` of the card's (the card's
@@ -218,6 +242,7 @@ import gc
 import itertools
 import json
 import math
+import multiprocessing
 import os
 import re
 import resource
@@ -225,7 +250,7 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 T_START = time.perf_counter()
@@ -324,6 +349,35 @@ MOE_NEAR_TIE = 1e-5
 # (scripts/mesh_smoke.py trains them at those depths); gemma-2b's training,
 # the main path, keeps its 18 layers
 TRAIN_CUT = {DEEPSEEK: 1, "mamba2-1.3b": 16, GRANITE: 8}
+# the [family_*] phases: full-width starcoder2-3b (dense GQA, G=12, a
+# 4096-token window, qkv bias), phi-3-vision-4.2b (vlm: 256 spliced image
+# positions, D=96) and musicgen-medium (audio: 4 codebooks of 2048, D=64),
+# each at full depth: 8 steps of 4 x 1024 Zipf tokens, with no checkpoint
+# ([train]'s gemma-2b holds that path, at ~0.4 GB/s); trained at 1024, short
+# of starcoder2's window, since the flash backward's plain recompute builds
+# B*H*S*T fp32 scores.  One loader worker, so that the batches come in the
+# seeded order.  The lr (scripts/lr_probe.py): at 3e-4 and 1e-4
+# starcoder2's and phi-3-vision's losses (d 3072, 30 and 32 layers) rose by
+# up to 9 nats and were no lower after 8 steps; at 1e-4 with a warmup of 8
+# and at 3e-5 they fell with rises of up to 4.5 nats between; at 1e-5 they
+# fell at nearly every step (10.94 -> 7.69, 10.82 -> 10.15).  musicgen
+# (d 1536) fell at each of 3e-4 to 1e-5, steadily from 3e-5 down
+STARCODER2, PHI3V, MUSICGEN = ("starcoder2-3b", "phi-3-vision-4.2b",
+                               "musicgen-medium")
+FAMILIES = (STARCODER2, PHI3V, MUSICGEN)
+FAMILY_LR = {STARCODER2: 1e-5, PHI3V: 1e-5, MUSICGEN: 3e-5}
+FAMILY_JOBS = {arch: TrainJob(arch=arch, smoke=False, steps=8, global_batch=4,
+                              seq_len=1024, lr=FAMILY_LR[arch], warmup=2,
+                              num_docs=16, checkpoint_every=8, log_every=1,
+                              loader_workers=1)
+               for arch in FAMILIES}
+# [past_window]: each family's prompt prefilled, then PAST_STEPS decode steps
+# against the train forward over the whole: starcoder2 at twice its window
+# (its prefill cache then in ring order, the decode written into ring slots
+# 0..15 over the oldest keys), phi-3-vision 256 image and 768 text positions,
+# musicgen 1024 positions of 4 codebooks
+PAST_PROMPT = {STARCODER2: 8192, PHI3V: 1024, MUSICGEN: 1024}
+PAST_STEPS = 16
 # each kernel's wrapper and its launch counter
 COUNTED = {"decode_attention": decode_attention,
            "flash_attention": flash_attention, "ssd_scan": ssd,
@@ -368,7 +422,11 @@ OTHER = [(2, 32, 32, 96, 300, 299, 0), (1, 64, 8, 128, 2048, 1500, 0),
          (2, 32, 16, 128, 1000, 999, 0), (1, 12, 1, 40, 77, 50, 0),
          (3, 6, 2, 8, 33, 100, 33)] + \
     [(4, 32, 32, 80, 64, pos, 0) for pos in (0, 63)] + \
-    [(4, 16, 8, 64, 64, pos, 0) for pos in (0, 1, 31, 32, 62, 63)]   # granite
+    [(4, 16, 8, 64, 64, pos, 0) for pos in (0, 1, 31, 32, 62, 63)] + \
+    [(4, 32, 32, 96, 64, 63, 0), (4, 24, 24, 64, 64, 63, 0),   # phi-3, musicgen
+     (4, 24, 2, 128, 64, 63, 4096)] + \
+    [(4, 24, 2, 128, 4096, pos, 4096)            # starcoder2's wrapped ring
+     for pos in (4095, 8192, 8192 + PAST_STEPS - 1)]
 
 # flash attention (B, S, H, Hkv, D, window): the shapes of
 # tests/test_kernels.py::test_flash_attention_sweep (G = 2, 8, 1, 3)
@@ -384,6 +442,15 @@ FLASH_GEMMA = [(4, 1024, 8, 1, 256, 0), (1, 1000, 8, 1, 256, 0),
 FLASH_OTHER = [(1, 5000, 24, 2, 128, 4096), (1, 2048, 32, 16, 128, 1024),
                (2, 500, 32, 32, 96, 0), (1, 300, 4, 1, 40, 0),
                (2, 333, 16, 2, 32, 20), (2, 1024, 32, 32, 80, 0)]
+# the [family_*] phases' shapes: starcoder2's, phi-3-vision's and musicgen's
+# training (B=4, S=1024; starcoder2's window longer than S), and
+# starcoder2's [past_window] prefill at twice its window (B=1, as held there)
+FLASH_STARCODER2 = dict(B=4, S=1024, H=24, Hkv=2, D=128)
+FLASH_PHI3V = dict(B=4, S=1024, H=32, Hkv=32, D=96)
+FLASH_MUSICGEN = dict(B=4, S=1024, H=24, Hkv=24, D=64)
+FLASH_WINDOW = dict(B=4, S=8192, H=24, Hkv=2, D=128, window=4096)
+FLASH_FAMILIES = [(4, 1024, 24, 2, 128, 4096), (4, 1024, 32, 32, 96, 0),
+                  (4, 1024, 24, 24, 64, 0), (1, 8192, 24, 2, 128, 4096)]
 # granite-moe-1b-a400m's training shape (G=2, D=64)
 FLASH_GRANITE = dict(B=4, S=1024, H=16, Hkv=8, D=64)
 # MLA's training shape at deepseek-v3's widths: 128 heads, QK dim 128 + 64,
@@ -398,7 +465,6 @@ MLA_DECODE = dict(B=4, T=32768)
 # plain impls at 4096 tokens
 PREFILL = dict(B=4, S=32768)
 PREFILL_STEPS = 8
-PREFILL_FP32_S = 32768
 PREFILL_IMPLS_S = 4096
 # the flash kernel at the [prefill] phase's shape, and the blocks of query
 # rows held against the plain version there: the first, a middle, the last
@@ -417,9 +483,12 @@ FLASH_ROUTES = {torch.bfloat16: "flash_fwd_mma_kernel",
                 torch.float32: "flash_fwd_kernel"}
 # the decode shapes timed (B, H, Hkv, D, T, pos): gemma-2b's widths at the
 # served cache and longer ones, then zamba2-2.7b's shared block and
-# granite-moe-1b-a400m's attention as served
+# granite-moe-1b-a400m's attention as served, starcoder2-3b's wrapped ring of
+# 4096 at [past_window]'s last step, phi-3-vision's and musicgen's served
 DECODE_TIMED = [(4, 8, 1, 256, T, T - 1) for T in (64, 1024, 4096, 32768)] + \
-    [(4, 32, 32, 80, 64, 63), (4, 16, 8, 64, 64, 63)]
+    [(4, 32, 32, 80, 64, 63), (4, 16, 8, 64, 64, 63)] + \
+    [(4, 24, 2, 128, 4096, 8192 + PAST_STEPS - 1),   # starcoder2's full ring
+     (4, 32, 32, 96, 64, 63), (4, 24, 24, 64, 64, 63)]   # phi-3, musicgen
 # zamba2-2.7b's shared attention block at its train phase's shape
 FLASH_ZAMBA2 = dict(B=2, S=1024, H=32, Hkv=32, D=80)
 # the [zamba2] phase's rounds: which route goes first alternates, so that
@@ -820,7 +889,7 @@ def flash_vs_plain():
         route, ran = FLASH_ROUTES[dtype], set()
         for B, S, H, Hkv, D, window in FLASH_SWEEP + FLASH_GEMMA + FLASH_OTHER \
                 + [tuple(FLASH_GRANITE.values()) + (0,),
-                   tuple(FLASH_MLA.values()) + (0,)]:
+                   tuple(FLASH_MLA.values()) + (0,)] + FLASH_FAMILIES:
             q, k, v = _flash_inputs(B, S, H, Hkv, D, dtype)
             got, names = _profiled(
                 lambda: flash_attention(q, k, v, window=window), "flash_fwd")
@@ -1298,45 +1367,57 @@ def _reduced(cfg) -> dict:
         if full != cfg.num_layers else {}
 
 
-def serve(card: str, arch: str, layers=None, tag: str = "serve"):
+def serve(card: str, arch: str, layers=None, tag: str = "serve",
+          second: bool = True):
     """``Server.generate`` on full-width ``arch`` (its depth cut to
     ``layers`` if given): batch 4, 32 prompt + 32 new tokens, greedy; the
-    output is checked, a second server gives the same tokens, and the decode
-    kernel is launched once per attention layer and token that goes through
-    it (never with MLA).  Then the family's comparison: for a model with
-    GQA attention, the served positions through the decode kernel and
-    through plain attention (held in the served dtype for gemma-2b, in fp32
-    for zamba2 and granite); for mamba2, which decodes through no kernel,
-    its decode logits against the train forward's through the ssd kernel;
-    MLA's comparison is ``mla_decode_vs_forward``."""
+    output is checked, a second server gives the same tokens (unless not
+    ``second``), and the decode kernel is launched once per attention layer
+    and token that goes through it (never with MLA).  A model with
+    codebooks, which ``Server.generate`` does not take (its prompts are
+    (B, P), as JAX's), is served by :func:`_codebook_generate` from the
+    server's params: (B, K, 32) prompts prefilled, the flash kernel once
+    per layer, then 32 decode steps.  Then the family's comparison: for a
+    model with GQA attention, the served positions through the decode
+    kernel and through plain attention (held in the served dtype for the
+    dense family, in fp32 for the others); for mamba2, which decodes
+    through no kernel, its decode logits against the train forward's
+    through the ssd kernel; MLA's comparison is
+    ``mla_decode_vs_forward``."""
     job = ServeJob(arch=arch, smoke=False, batch=4, prompt_len=32,
                    max_new_tokens=32)
     torch.cuda.reset_peak_memory_stats()
     srv = _server(job, layers)
     cfg = srv.cfg
+    K = cfg.num_codebooks
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (job.batch, job.prompt_len)).astype(np.int32)
+        0, cfg.vocab_size, (job.batch,) + ((K,) if K else ())
+        + (job.prompt_len,)).astype(np.int32)
     total = job.prompt_len + job.max_new_tokens
 
     _reset_counts()
-    out = srv.generate(prompts)
+    out = _generate(srv, prompts)
     counts = _counts()
 
-    if out.shape != (job.batch, total):
+    if out.shape != prompts.shape[:-1] + (total,):
         raise AssertionError(f"{arch}: output shape {out.shape}")
-    if not (out[:, :job.prompt_len] == prompts).all():
+    if not (out[..., :job.prompt_len] == prompts).all():
         raise AssertionError(f"{arch}: prompt not preserved")
     if not ((out >= 0) & (out < cfg.vocab_size)).all():
         raise AssertionError(f"{arch}: token id out of vocab")
-    _check_counts(counts, {"decode_attention": _attention_layers(cfg) * total},
-                  arch)
+    L = _attention_layers(cfg)
+    _check_counts(counts, {"flash_attention": L,
+                           "decode_attention": L * job.max_new_tokens}
+                  if K else {"decode_attention": L * total}, arch)
     first = dict(srv.stats, tokens_per_s=srv.throughput())
 
-    again = _server(job, layers, srv.params if layers else None)
-    if not np.array_equal(out, again.generate(prompts)):
-        raise AssertionError(f"{arch}: a second Server gave other tokens")
-    second = dict(again.stats, tokens_per_s=again.throughput())
-    del again
+    second_stats = None
+    if second:
+        again = _server(job, layers, srv.params if layers else None)
+        if not np.array_equal(out, _generate(again, prompts)):
+            raise AssertionError(f"{arch}: a second Server gave other tokens")
+        second_stats = dict(again.stats, tokens_per_s=again.throughput())
+        del again
 
     held = cfg.dtype if cfg.family == "dense" else "float32"
     if cfg.family == "ssm":
@@ -1350,15 +1431,58 @@ def serve(card: str, arch: str, layers=None, tag: str = "serve"):
     prefill = (_prefill_vs_decode(srv, out, held) if cfg.attention != "mla"
                else "in [mla_decode_vs_forward]")
     srv.served = (prompts, out)      # the [dist] phase serves them again
+    srv.launches = counts
     _say(tag, card=card, arch=cfg.name, layers=cfg.num_layers,
          reduced=_reduced(cfg),
          d_model=cfg.d_model, batch=job.batch, prompt_len=job.prompt_len,
-         new_tokens=job.max_new_tokens, launches=counts,
-         first_server=first, second_server=second, check=check,
+         new_tokens=job.max_new_tokens, codebooks=K, launches=counts,
+         path="make_prefill_step + make_decode_step" if K
+         else "Server.generate",
+         first_server=first, second_server=second_stats, check=check,
          check_rel=rel, check_steps=steps, prefill_vs_decode=prefill,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         sample=out[0, job.prompt_len:job.prompt_len + 8].tolist())
+         sample=out[0, ..., job.prompt_len:job.prompt_len + 8].tolist())
     return srv, counts["decode_attention"]
+
+
+def _generate(srv, prompts: np.ndarray) -> np.ndarray:
+    """``srv.generate(prompts)``, or for a model with codebooks
+    :func:`_codebook_generate`."""
+    if srv.cfg.num_codebooks:
+        return _codebook_generate(srv, prompts)
+    return srv.generate(prompts)
+
+
+def _codebook_generate(srv, prompts: np.ndarray) -> np.ndarray:
+    """Greedy generation for a model with codebooks, as ``Server.generate``
+    runs it for text, on the server's params, head and stats: prompts
+    (B, K, P) through ``make_prefill_step`` (the flash kernel once per
+    layer), the cache padded to P + new, then ``max_new_tokens`` steps of
+    ``make_decode_step``, each codebook's next token the argmax of its
+    logits -> (B, K, P + new)."""
+    job, model, V = srv.job, srv.model, srv.cfg.vocab_size
+    B, K, P = prompts.shape
+    total = P + job.max_new_tokens
+    out = np.zeros((B, K, total), np.int32)
+    out[..., :P] = prompts
+    t0 = time.perf_counter()
+    logits, cache = steps_lib.make_prefill_step(model)(
+        srv.params, {"tokens": torch.from_numpy(prompts).to(srv.device,
+                                                            torch.int64)},
+        head=srv.head)
+    cache = _pad_cache(model, cache, B, total)
+    srv._sync()
+    srv.stats["prefill_s"] += time.perf_counter() - t0
+    step = steps_lib.make_decode_step(model)
+    t0 = time.perf_counter()
+    for t in range(P, total):
+        tok = logits[..., :V].argmax(-1)                    # (B, K)
+        out[..., t] = tok.cpu().numpy()
+        logits, cache = step(srv.params, cache, tok, t, head=srv.head)
+    srv._sync()
+    srv.stats["decode_s"] += time.perf_counter() - t0
+    srv.stats["tokens"] += B * job.max_new_tokens
+    return out
 
 
 def _decode_kernel_vs_torch(srv, out, held: str) -> dict:
@@ -1382,21 +1506,21 @@ def _decode_kernel_vs_torch(srv, out, held: str) -> dict:
         with torch.inference_mode():
             for impl in ("torch", "kernel"):
                 model = build_model(cfg.with_(dtype=dtype), attn_impl=impl)
-                cache = model.init_cache(out.shape[0], out.shape[1],
+                cache = model.init_cache(out.shape[0], out.shape[-1],
                                          srv.device)
                 per_step = []
-                for t in range(out.shape[1]):
-                    tok = torch.from_numpy(out[:, t]).to(srv.device,
-                                                         torch.int64)
+                for t in range(out.shape[-1]):
+                    tok = torch.from_numpy(out[..., t]).to(srv.device,
+                                                           torch.int64)
                     lg, cache = model.decode_step(params, cache, tok, t,
                                                   head=srv.head)
-                    per_step.append(lg[:, :cfg.vocab_size].float())
+                    per_step.append(lg[..., :cfg.vocab_size].float())
                 logits[impl] = torch.stack(per_step)
         if not torch.isfinite(logits["kernel"]).all():
             raise AssertionError("non-finite logits")
         rels[dtype] = max(((logits["kernel"][t] - logits["torch"][t])
                            .abs().max() / logits["torch"][t].abs().max()).item()
-                          for t in range(out.shape[1]))
+                          for t in range(out.shape[-1]))
         del params, logits
     if not rels[held] < DECODE_RTOL:
         raise AssertionError(f"kernel vs torch attention: {rels}")
@@ -1497,16 +1621,16 @@ def _prefill_vs_decode(srv, out, held: str) -> dict:
     params = (srv.params if held == srv.cfg.dtype
               else tree_map(lambda p: p.float(), srv.params))
     model, V = build_model(cfg), cfg.vocab_size
-    B, total = out.shape
+    B, total = out.shape[0], out.shape[-1]
     P = srv.job.prompt_len
     tokens = torch.from_numpy(out).to(srv.device, torch.int64)
     with torch.inference_mode():
         cache = model.init_cache(B, total, srv.device)
         served = []
         for t in range(total):
-            lg, cache = model.decode_step(params, cache, tokens[:, t], t,
+            lg, cache = model.decode_step(params, cache, tokens[..., t], t,
                                           head=srv.head)
-            served.append(lg[:, :V].float())
+            served.append(lg[..., :V].float())
         del cache
     got, flash, decode = _continue(model, params, tokens, P, srv.head)
     _check_counts(flash, {"flash_attention": _attention_layers(cfg)},
@@ -1595,13 +1719,15 @@ def zipf_lake(job: TrainJob, vocab_size: int, a: float = 1.2) -> Dataset:
 
 
 def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
-          data_ds=None, layers=None):
+          data_ds=None, layers=None, checkpoint: bool = True):
     """``Trainer.run`` on ``job`` (its model cut to ``layers`` layers if
     given), then its gates: finite, falling losses; exact launch counts; a
-    checkpoint restored bit for bit; one batch's loss and gradient norm
+    checkpoint restored bit for bit (with ``checkpoint``; else the trainer's
+    save is skipped, ``_NoSave``); one batch's loss and gradient norm
     through the kernels and the plain impls within ``TRAIN_RTOL``."""
     torch.cuda.reset_peak_memory_stats()
-    ckpt = _TimedCheckpoints(MemoryProvider(), keep=job.keep_checkpoints)
+    ckpt = (_TimedCheckpoints if checkpoint else _NoSave)(
+        MemoryProvider(), keep=job.keep_checkpoints)
     trainer = Trainer(job, ckpt=ckpt, data_ds=data_ds)
     if layers is not None:
         _cut_trainer(trainer, layers)
@@ -1630,18 +1756,21 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
     if ckpt.saved_steps != [job.steps]:
         raise AssertionError(f"checkpoints {ckpt.saved_steps}")
     host_peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
-    t0 = time.perf_counter()
-    back = ckpt.restore(abstract(train_state_specs(trainer.model,
-                                                   trainer.opt)),
-                        device="cuda")
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    mine, theirs = dict(named_leaves(state)), dict(named_leaves(back))
-    if mine.keys() != theirs.keys() or not all(
-            mine[k].dtype == theirs[k].dtype and torch.equal(mine[k], theirs[k])
-            for k in mine):
-        raise AssertionError("the restored checkpoint differs from the state")
-    del back, mine, theirs
+    restore_s = None
+    if checkpoint:
+        t0 = time.perf_counter()
+        back = ckpt.restore(abstract(train_state_specs(trainer.model,
+                                                       trainer.opt)),
+                            device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mine, theirs = dict(named_leaves(state)), dict(named_leaves(back))
+        if mine.keys() != theirs.keys() or not all(
+                mine[k].dtype == theirs[k].dtype
+                and torch.equal(mine[k], theirs[k]) for k in mine):
+            raise AssertionError("the restored checkpoint differs from the "
+                                 "state")
+        del back, mine, theirs
     state_gb = sum(t.numel() * t.element_size()
                    for _, t in named_leaves(state)) / 1e9
 
@@ -1672,12 +1801,22 @@ def train(card: str, job: TrainJob = TRAIN_JOB, tag: str = "train",
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          step_s=[h["sec"] for h in out["history"]], median_step_s=step_s,
          tokens_per_s=tokens / step_s, peak_memory_gb=peak_gb,
-         state_gb=state_gb, save_s=ckpt.copy_s + ckpt.write_s,
-         save_copy_s=ckpt.copy_s, save_write_s=ckpt.write_s,
+         state_gb=state_gb, checkpoint=checkpoint,
+         save_s=ckpt.copy_s + ckpt.write_s if checkpoint else None,
+         save_copy_s=ckpt.copy_s if checkpoint else None,
+         save_write_s=ckpt.write_s if checkpoint else None,
          restore_s=restore_s, host_peak_gb=host_peak_gb,
          kernel_vs_torch=compare, kernel_vs_torch_rel=rel,
          metrics_by_step=per_step, **extra)
     return trainer, state, batch, counts
+
+
+class _NoSave(CheckpointManager):
+    """A checkpoint manager that records each save's step and saves
+    nothing: no copy to the host, no write into the lake."""
+
+    def save(self, state, step, **kw):
+        self.saved_steps.append(step)
 
 
 # ----------------------------------------------------------------- phase 5
@@ -2322,40 +2461,85 @@ def trace(srv, card: str):
 
 
 # ---------------------------------------------------------------- phase 3a
-def _last_logits(model, params, tokens, head, n: int):
+def _last_logits(model, params, tokens, head, n: int, extra=None):
     """The train forward (``backbone``, through the flash kernel) over
-    ``tokens``, and the logits of its last ``n`` positions only: at 32k
-    positions all of them would be ~134 GB in fp32."""
+    ``tokens`` ((B, T), or (B, K, T) with codebooks; ``extra``: the batch's
+    other inputs, such as ``image_embeds``), and the logits of its last
+    ``n`` positions only: at 32k positions all of them would be ~134 GB in
+    fp32."""
     cfg = model.cfg
-    B, T = tokens.shape
+    B, T = tokens.shape[0], tokens.shape[-1]
     with torch.inference_mode():
         positions = torch.arange(T, dtype=torch.int32,
                                  device=tokens.device).expand(B, T)
         h = model.backbone(params, model._embed_tokens(
-            params, {"tokens": tokens}), positions)
+            params, {"tokens": tokens, **(extra or {})}), positions)
         h = rmsnorm(params["final_ln"], h[:, -n:], cfg.norm_eps)
         return model._logits(params, h, head)[..., :cfg.vocab_size].float()
 
 
-def _continue(model, params, tokens, S: int, head):
-    """``make_prefill_step`` over the first S tokens, the cache padded to
-    the whole length, ``make_decode_step`` over the rest: -> (the prefill's
-    last logits and the decode's, (n+1, B, V) over the real vocabulary,
-    the flash launches of the prefill, the decode launches)."""
+def _continue(model, params, tokens, S: int, head, extra=None):
+    """``make_prefill_step`` over the first S tokens (with ``extra``, the
+    batch's other inputs), the cache padded to the whole length,
+    ``make_decode_step`` over the rest: -> (the prefill's last logits and
+    the decode's, (n+1, B, V), or (n+1, B, K, V) with codebooks, over the
+    real vocabulary, the flash launches of the prefill, the decode
+    launches)."""
     V = model.cfg.vocab_size
-    B, T = tokens.shape
+    B, T = tokens.shape[0], tokens.shape[-1]
     _reset_counts()
     last, cache = steps_lib.make_prefill_step(model)(
-        params, {"tokens": tokens[:, :S]}, head=head)
+        params, {"tokens": tokens[..., :S], **(extra or {})}, head=head)
     flash = _counts()
     cache = _pad_cache(model, cache, B, T)
     step = steps_lib.make_decode_step(model)
     _reset_counts()
-    out = [last[:, :V].float()]
+    out = [last[..., :V].float()]
     for t in range(S, T):
-        lg, cache = step(params, cache, tokens[:, t], t, head=head)
-        out.append(lg[:, :V].float())
+        lg, cache = step(params, cache, tokens[..., t], t, head=head)
+        out.append(lg[..., :V].float())
     return torch.stack(out), flash, _counts()
+
+
+def _past(cfg, params, head, tokens, S: int, steps: int, extra=None):
+    """A prompt of S positions through ``make_prefill_step`` (the flash
+    kernel once per attention layer), its cache padded, then ``steps``
+    decode steps through the decode kernel (once per layer each), against
+    the train forward over all S + steps positions through the flash
+    kernel, its last steps + 1 positions' logits: in ``cfg``'s dtype on
+    every row of ``tokens`` (and ``extra``, the batch's other inputs),
+    reported; in fp32 on the first row (``params`` cast up), held at
+    ``DECODE_RTOL``.  -> ({dtype: {batch, S, rel, seconds}}, the flash and
+    decode launches in ``cfg``'s dtype)."""
+    L = _attention_layers(cfg)
+    out, launches = {}, None
+    for dtype, B in ((cfg.dtype, tokens.shape[0]), ("float32", 1)):
+        weights = (params if dtype == cfg.dtype
+                   else tree_map(lambda p: p.float(), params))
+        model = build_model(cfg.with_(dtype=dtype))
+        part = {k: v[:B] for k, v in (extra or {}).items()}
+        t0 = time.perf_counter()
+        got, flash, decode = _continue(model, weights, tokens[:B], S, head,
+                                       part)
+        _check_counts(flash, {"flash_attention": L},
+                      f"{cfg.name} {dtype} prefill of {S}")
+        _check_counts(decode, {"decode_attention": L * steps},
+                      f"{cfg.name} {dtype} decode from the prefill cache")
+        want = _last_logits(model, weights, tokens[:B], head, steps + 1, part)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name}: non-finite logits past {S}")
+        out[dtype] = {"batch": B, "S": S,
+                      "rel": _rel_rows(got, want.movedim(1, 0)),
+                      "seconds": time.perf_counter() - t0}
+        if dtype == cfg.dtype:
+            launches = (flash["flash_attention"], decode["decode_attention"])
+        del weights, got, want
+        torch.cuda.empty_cache()
+    if not out["float32"]["rel"] < DECODE_RTOL:
+        raise AssertionError(f"{cfg.name} decode from the prefill cache of "
+                             f"{S} vs forward: {out}")
+    return out, launches
 
 
 def _prefill_impls(cfg, params, batch, head) -> dict:
@@ -2392,8 +2576,8 @@ def prefill(card: str, srv):
     cache's size and the device ms by group.  Then 8 decode steps from the
     padded cache through the decode kernel (18 launches each) against the
     train forward over S + 8 tokens through the flash kernel, its last 9
-    positions: held at ``DECODE_RTOL`` in fp32 at batch 1 and S =
-    ``PREFILL_FP32_S`` (the weights cast up), reported in bf16 at batch 4.
+    positions (``_past``): held at ``DECODE_RTOL`` in fp32 at batch 1 (the
+    weights cast up), reported in bf16 at batch 4.
     Then, at ``PREFILL_IMPLS_S`` tokens, the logits and every cache leaf
     through the kernel against the plain ``torch`` and ``torch_pairs``
     impls (``_prefill_impls``): held at ``DECODE_RTOL`` in fp32 (the weights
@@ -2443,41 +2627,16 @@ def prefill(card: str, srv):
     torch.cuda.empty_cache()
 
     # the continuation: bf16 at batch 4 (reported), fp32 at batch 1 (held)
-    got, flash, decode = _continue(model, params, tokens, S, head)
-    _check_counts(flash, {"flash_attention": L}, "gemma-2b prefill")
-    _check_counts(decode, {"decode_attention": L * PREFILL_STEPS},
-                  "decode from the prefill cache")
-    decode_launches = decode["decode_attention"]
-    flash_launches += flash["flash_attention"]
-    want = _last_logits(model, params, tokens, head, PREFILL_STEPS + 1)
-    cont = {"bfloat16": {"batch": B, "S": S,
-                         "rel": _rel_rows(got, want.movedim(1, 0))}}
-    del got, want
-    torch.cuda.empty_cache()
-    params32 = tree_map(lambda p: p.float(), params)
-    model32 = build_model(cfg.with_(dtype="float32"))
-    tokens32 = tokens[:1, S - PREFILL_FP32_S:]
-    t0 = time.perf_counter()
-    got, flash, decode = _continue(model32, params32, tokens32,
-                                   PREFILL_FP32_S, head)
-    _check_counts(flash, {"flash_attention": L}, "fp32 prefill")
-    _check_counts(decode, {"decode_attention": L * PREFILL_STEPS},
-                  "fp32 decode from the prefill cache")
-    want = _last_logits(model32, params32, tokens32, head, PREFILL_STEPS + 1)
-    torch.cuda.synchronize()
-    cont["float32"] = {"batch": 1, "S": PREFILL_FP32_S,
-                       "rel": _rel_rows(got, want.movedim(1, 0)),
-                       "seconds": time.perf_counter() - t0}
-    del got, want
-    torch.cuda.empty_cache()
-    if not cont["float32"]["rel"] < DECODE_RTOL:
-        raise AssertionError(f"decode from the prefill cache vs forward: "
-                             f"{cont}")
+    cont, (flash, decode_launches) = _past(cfg, params, head, tokens, S,
+                                           PREFILL_STEPS)
+    flash_launches += flash
 
     # the kernel against the plain impls at PREFILL_IMPLS_S tokens
     small = {"tokens": tokens[:, :PREFILL_IMPLS_S]}
+    params32 = tree_map(lambda p: p.float(), params)
     impls = {"bfloat16": _prefill_impls(cfg, params, small, head),
-             "float32": _prefill_impls(model32.cfg, params32, small, head)}
+             "float32": _prefill_impls(cfg.with_(dtype="float32"), params32,
+                                       small, head)}
     del params32
     torch.cuda.empty_cache()
     if not (max(max(r.values()) for r in impls["float32"].values())
@@ -2608,7 +2767,106 @@ def granite(card: str) -> dict:
     return dryrun_train(card, trainer, state, batch)
 
 
+# ------------------------------------------------------------- the families
+FAMILY_TAGS = {STARCODER2: "starcoder2", PHI3V: "phi3v", MUSICGEN: "musicgen"}
+
+
+def past_window(card: str, srv, S: int, steps: int = PAST_STEPS) -> dict:
+    """``[past_window_*]``: ``_past`` on the served model, as ``[prefill]``
+    holds gemma-2b: a prompt of S positions and ``steps`` decode steps,
+    held in fp32 at batch 1, reported in the served dtype at batch 4.  A
+    windowed model's prefill cache is its last ``window`` keys (JAX's
+    ``k[:, -window:]``), in ring order here since S is a multiple of the
+    window, and the decode writes ring slots ``pos % window`` over the
+    oldest keys.  Image embeddings (drawn from a seeded generator) are
+    spliced over the first ``num_image_tokens`` positions in the prefill
+    and the forward; a model with codebooks takes (B, K, T) grids and
+    gives (B, K, V) logits.  -> the served dtype's (flash, decode)
+    launches, its main path."""
+    cfg = srv.cfg
+    L, T, K = _attention_layers(cfg), S + steps, cfg.num_codebooks
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4,) + ((K,) if K else ()) + (T,))).to(srv.device)
+    extra = {}
+    if cfg.num_image_tokens:
+        extra["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.num_image_tokens, 1024)).astype(np.float32)).to(srv.device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _past(cfg, srv.params, srv.head, tokens, S, steps, extra)
+    W = cfg.sliding_window
+    _say(f"past_window_{FAMILY_TAGS[cfg.name]}", card=card, arch=cfg.name,
+         layers=cfg.num_layers, reduced=_reduced(cfg), prompt=S,
+         decode_steps=steps, window=W,
+         ring_slots=[S % W, (T - 1) % W] if W else None,
+         image_tokens=cfg.num_image_tokens, codebooks=K,
+         launches={"flash_attention": L, "decode_attention": L * steps},
+         continuation_vs_forward=out, rtol=DECODE_RTOL, held="float32",
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
+def family(card: str, arch: str) -> dict:
+    """The phases of one of ``FAMILIES``: ``[train_*]`` (``train`` on
+    ``FAMILY_JOBS[arch]`` from a lake of Zipf tokens, at ``TRAIN_CUT``'s
+    depth if it names the arch, with no checkpoint) and its ``[dryrun]``
+    step; ``[serve_*]`` (``serve``, phi-3-vision text only, as JAX serves
+    it); ``[past_window_*]``.  -> the flash and decode launches of its main
+    path: the training run, the ``[dryrun]`` step, the served tokens and
+    the served dtype's continuation past the prompt."""
+    tag, job = FAMILY_TAGS[arch], FAMILY_JOBS[arch]
+    lake = zipf_lake(job, get_arch(arch).vocab_size)
+    trainer, state, batch, counts = train(card, job, f"train_{tag}", lake,
+                                          TRAIN_CUT.get(arch),
+                                          checkpoint=False)
+    flash = counts["flash_attention"]
+    flash += dryrun_train(card, trainer, state, batch)["flash_attention"]
+    del trainer, state, batch, lake
+    torch.cuda.empty_cache()
+    # one Server: the second, which gives the same tokens, is the first cut
+    # that keeps the script within its clock (the earlier phases keep theirs)
+    srv, decode = serve(card, arch, tag=f"serve_{tag}", second=False)
+    flash += srv.launches["flash_attention"]
+    past_flash, past_decode = past_window(card, srv, PAST_PROMPT[arch])
+    del srv
+    torch.cuda.empty_cache()
+    return {"flash_attention": flash + past_flash,
+            "decode_attention": decode + past_decode}
+
+
 # ------------------------------------------------------------------ dryrun
+# (cfg, B, S, kind) -> a future of ``dryrun_count``, made ahead by
+# ``trace_ahead``
+_TRACES = {}
+
+
+def dryrun_count(cfg, B: int, S: int, kind: str) -> dict:
+    """The dry run's count of one ``kind`` step of ``cfg`` at (B, S) with
+    no mesh (``steps_lib.trace_cell``, on fake tensors on the CPU) -> its
+    costs, memory, the active parameter count and the seconds it took:
+    what ``dryrun`` reads, and nothing that cannot be pickled."""
+    t0 = time.perf_counter()
+    costs, memory, model, _ = steps_lib.trace_cell(
+        cfg, ShapeConfig(f"{kind}_{B}x{S}", S, B, kind), None)
+    return {"costs": costs, "memory": memory,
+            "active": active_param_count(cfg, model),
+            "trace_s": time.perf_counter() - t0}
+
+
+def trace_ahead(cells) -> ProcessPoolExecutor:
+    """``dryrun_count`` of each (cfg, B, S, kind) in ``cells``, in that
+    order, in a process of its own while the card runs the phases before
+    their ``[dryrun]``s (the traces are CPU work, ~44 s of the script's
+    clock inline); ``dryrun`` takes each result as it needs it.  -> the
+    pool, which the caller shuts down."""
+    pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context(
+        "spawn"))
+    for cell in cells:
+        _TRACES[cell] = pool.submit(dryrun_count, *cell)
+    return pool
+
+
 def dryrun(card: str, tag: str, cfg, B: int, S: int, kind: str, run,
            state, step_s=None, hold_peak: bool = False, reps: int = 1
            ) -> dict:
@@ -2620,16 +2878,15 @@ def dryrun(card: str, tag: str, cfg, B: int, S: int, kind: str, run,
     is the phase's median step; None times the ``reps`` steps here.
     -> the launch counters' delta."""
     shape = ShapeConfig(f"{kind}_{B}x{S}", S, B, kind)
-    t0 = time.perf_counter()
-    costs, memory, model, _ = steps_lib.trace_cell(cfg, shape, None)
-    trace_s = time.perf_counter() - t0
+    ahead = _TRACES.pop((cfg, B, S, kind), None)
+    traced = ahead.result() if ahead else dryrun_count(cfg, B, S, kind)
+    costs, memory = traced["costs"], traced["memory"]
     rl = Roofline(arch=cfg.name, shape=shape.name, mesh="none", chips=1,
                   flops_per_device=costs.flops,
                   bytes_per_device=costs.hbm_bytes, collective_bytes=0.0,
                   collective_breakdown={},
                   peak_memory_per_device=costs.peak_bytes,
-                  model_flops_total=model_flops(
-                      cfg, shape, active_param_count(cfg, model)),
+                  model_flops_total=model_flops(cfg, shape, traced["active"]),
                   flops_by_dtype=costs.flops_by_dtype)
     state_bytes = sum(t.numel() * t.element_size()
                       for _, t in named_leaves(state))
@@ -2653,7 +2910,8 @@ def dryrun(card: str, tag: str, cfg, B: int, S: int, kind: str, run,
     calls = {k: v // reps for k, v in launches.items() if v}
     out = {
         "card": card, "arch": cfg.name, "kind": kind, "batch": B, "seq": S,
-        "dtype": cfg.dtype, "remat": cfg.remat, "trace_s": trace_s,
+        "dtype": cfg.dtype, "remat": cfg.remat,
+        "trace_s": traced["trace_s"], "traced_ahead": ahead is not None,
         "state_bytes": {"predicted": memory["state_bytes"],
                         "measured": state_bytes},
         "kernel_calls": {"predicted": costs.kernel_calls, "measured": calls,
@@ -2946,36 +3204,49 @@ def timings(B: int, H: int, Hkv: int, D: int, T: int, pos: int, card: str):
 
 
 def flash_timings(B: int, S: int, card: str, H: int = GEMMA["H"],
-                  Hkv: int = GEMMA["Hkv"], D: int = GEMMA["D"]):
-    """The flash kernel, causal, bf16; at gemma-2b's widths by default.
-    Past ``PLAIN_MAX_S`` the plain version timed is the ``torch`` impl's
-    ``blockwise_attention`` (``ref_attention``'s scores would not fit), and
-    fewer calls are timed (a call takes ~0.1 s at 32k)."""
+                  Hkv: int = GEMMA["Hkv"], D: int = GEMMA["D"],
+                  window: int = 0):
+    """The flash kernel, causal (and windowed, if ``window``), bf16; at
+    gemma-2b's widths by default.  Past ``PLAIN_MAX_S`` the plain version
+    timed is the ``torch`` impl's ``blockwise_attention`` (``ref_attention``'s
+    scores would not fit), and fewer calls are timed (a call takes ~0.1 s at
+    32k).  SDPA takes a window as a boolean mask, and then K/V expanded to
+    every query head beforehand (untimed): its memory-efficient route takes
+    such a mask but not ``enable_gqa``, and its math route would
+    materialize the scores."""
     q, k, v = _flash_inputs(B, S, H, Hkv, D, torch.bfloat16, seed=5)
-    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
-    ops = 4 * B * H * D * pairs                 # QK^T and PV, 2 each a pair
-    nbytes = (2 * B * S * H * D + 2 * B * S * Hkv * D) * 2
-    shape = f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal bf16"
+    ops, nbytes = fa_ops.costs(q, k, True, window)   # the pairs computed
+    shape = (f"B={B} S={S} H={H} Hkv={Hkv} D={D} causal"
+             f"{f' window={window}' if window else ''} bf16")
     q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))   # (B, heads, S, D)
     long = S > PLAIN_MAX_S
+    mask = None
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        k4, v4 = (t.repeat_interleave(H // Hkv, dim=1) for t in (k4, v4))
 
     def library():
+        if mask is not None:
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
                                               enable_gqa=True)
 
     def plain():
         if long:
-            return attn_lib.blockwise_attention(q, k, v,
+            return attn_lib.blockwise_attention(q, k, v, window=window,
                                                 scale=1.0 / math.sqrt(D))
-        return ref_attention(q, k, v)
+        return ref_attention(q, k, v, window=window)
+
+    def kernel():
+        return flash_attention(q, k, v, window=window)
     lib_err = (library().transpose(1, 2).float()
                - plain().float()).abs().max().item()
     few = dict(calls=2, replays=3) if long else {}
     return {
         "shape": shape,
-        "ms": device_ms(lambda: flash_attention(q, k, v), **few),
-        "call_ms": call_ms(lambda: flash_attention(q, k, v),
-                           calls=5 if long else 20),
+        "ms": device_ms(kernel, **few),
+        "call_ms": call_ms(kernel, calls=5 if long else 20),
         "plain_ms": device_ms(plain, calls=1, replays=2) if long
         else device_ms(plain, calls=5, replays=4),
         "plain": "blockwise_attention" if long else "ref_attention",
@@ -3135,6 +3406,23 @@ def preprocess_timings(card: str, rotation: int = 5):
     return out
 
 
+def _dryrun_cells() -> list:
+    """The (cfg, B, S, kind) of each ``[dryrun]`` of the whole script, in
+    the order it runs them."""
+    gemma = get_arch("gemma-2b")
+    cut = {arch: _cut(get_arch(arch), TRAIN_CUT[arch])
+           for arch in (MAMBA2_JOB.arch, GRANITE)}
+    return [(gemma, 4, 64, "decode"),
+            (gemma, PREFILL["B"], PREFILL["S"], "prefill"),
+            (gemma, TRAIN_JOB.global_batch, TRAIN_JOB.seq_len, "train"),
+            (cut[MAMBA2_JOB.arch], MAMBA2_JOB.global_batch, MAMBA2_JOB.seq_len,
+             "train"),
+            (cut[GRANITE], GRANITE_JOB.global_batch, GRANITE_JOB.seq_len,
+             "train")] + [
+        (get_arch(arch), FAMILY_JOBS[arch].global_batch,
+         FAMILY_JOBS[arch].seq_len, "train") for arch in FAMILIES]
+
+
 def main() -> None:
     card = environment()
     errors = kernel_vs_plain()
@@ -3150,6 +3438,9 @@ def main() -> None:
     deepseek(card)      # before the phases that grow the host's memory
     feed_launches, feed_err = image_feed(card)
     torch.cuda.empty_cache()
+    # traced while the card runs the phases before their [dryrun]s; started
+    # after the image feed, whose loader's workers take the host's cores
+    pool = trace_ahead(_dryrun_cells())
     srv, launches = serve(card, "gemma-2b")
     launches += dryrun_decode(card, srv)["decode_attention"]
     served = srv.served
@@ -3192,12 +3483,22 @@ def main() -> None:
     for arch in ("mamba2-1.3b", "zamba2-2.7b", GRANITE):
         serve(card, arch)
         torch.cuda.empty_cache()
+    for arch in FAMILIES:
+        counts = family(card, arch)
+        flash_launches += counts["flash_attention"]
+        launches += counts["decode_attention"]
     decode_rows = [timings(*shape, card=card) for shape in DECODE_TIMED]
     serving = decode_rows[0]          # the served cache, T=64
     training = flash_timings(4, 1024, card)
     long_train = flash_timings(4, 4096, card)
     prefill_shape = flash_timings(**FLASH_PREFILL, card=card)
     granite_train = flash_timings(**FLASH_GRANITE, card=card)
+    family_shapes = {f"{FAMILY_TAGS[arch]}_shape": flash_timings(**shape,
+                                                                 card=card)
+                     for arch, shape in ((STARCODER2, FLASH_STARCODER2),
+                                         (PHI3V, FLASH_PHI3V),
+                                         (MUSICGEN, FLASH_MUSICGEN))}
+    window_shape = flash_timings(**FLASH_WINDOW, card=card)
     mla = mla_timings(card)
     flash_entry = {
         "name": "flash_attention",
@@ -3213,6 +3514,8 @@ def main() -> None:
         "prefill_shape": prefill_shape,
         "zamba2_shape": zamba2_train,
         "granite_shape": granite_train,
+        **family_shapes,
+        "starcoder2_window_shape": window_shape,
         "mla_shape": mla,
     }
     entry = {
@@ -3257,6 +3560,9 @@ def main() -> None:
         "library_note": "no single PyTorch call crops, casts and normalizes",
         "feed_shape": pre,
     }
+    pool.shutdown()
+    if _TRACES:
+        raise AssertionError(f"traces made ahead and never read: {_TRACES}")
     _say("done", script_s=time.perf_counter() - T_START)
     print(json.dumps({"kernels": [entry, flash_entry, ssd_entry, pre_entry]}),
           flush=True)
